@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Break the port's frame down by kernel on one NVIDIA GPU.
+
+    python3 profile_step.py [--frames 100] [--out breakdown.json]
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc; it
+imports nothing of JAX.  Two configurations, the ones ``chip_smoke.py`` times:
+
+  * 1M particles, uniform, C=128, after 5 live frames;
+  * the 50k reference scene (gravity 400) after 300 frames.
+
+For each it measures, over ``--frames`` frames each:
+
+  event_ms    ms per frame between CUDA events (the method of
+              ``chip_smoke.py``, which averages 40 frames at 1M and 100 at 50k);
+  enqueue_ms  host ms to enqueue one frame on a drained stream, averaged;
+  busy_ms     device time per frame summed over the kernel rows of
+              ``torch.profiler`` (one stream, so kernels do not overlap);
+  idle        1 - busy_ms / event_ms, the device's idle share;
+  rows        [kernel name, ms per frame, launches per frame], largest first;
+  event_ms_after_profiler  event_ms again, once the profiler has run.
+
+The profiler adds host time to every launch, so both configurations are
+timed first and only then profiled; event_ms_after_profiler shows whether the
+profiler left the process slower.  Prints the card's name and power limit,
+then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def timing(torch, frame, frames: int) -> dict:
+    """event_ms and enqueue_ms of ``frames`` calls of ``frame()``."""
+    frame()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(frames):
+        frame()
+    e1.record()
+    e1.synchronize()
+    event_ms = e0.elapsed_time(e1) / frames
+
+    host_s = 0.0
+    for _ in range(frames):  # one frame at a time: a full launch queue would block
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        host_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    enqueue_ms = host_s * 1e3 / frames
+    return {"frames": frames, "event_ms": event_ms, "enqueue_ms": enqueue_ms}
+
+
+def kernel_rows(torch, frame, frames: int) -> dict:
+    """busy_ms and the per-kernel rows of ``frames`` profiled calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # operator rows repeat their kernels' time
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        rows.append([ev.key, us / 1e3 / frames, ev.count / frames])
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"busy_ms": busy_ms, "rows": rows}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--out", default=None, help="also write the result here (JSON)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: torch.cuda.is_available() is False; "
+                         "this script needs an NVIDIA GPU")
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import BOUNDS, N_1M, gpu_line, uniform_plane_state
+    from rust_particle_system_tpu_torch.core.params import make_params
+    from rust_particle_system_tpu_torch.models.sph import SPHFluid
+    from rust_particle_system_tpu_torch.ops.cuda import resident as R
+    from rust_particle_system_tpu_torch.ops.grid import GridSpec
+    from rust_particle_system_tpu_torch.runtime.simulation import Simulation
+
+    card = gpu_line()
+    print(card)
+    out = {"card": card}
+
+    spec = GridSpec.from_bounds(BOUNDS, 9.0, 128)
+    p1m = make_params(bounds=BOUNDS)
+    st = uniform_plane_state(torch, spec, N_1M, seed=7)
+    holder = [dataclasses.replace(st, frame=p1m.shader_delay)]
+
+    def frame_1m():
+        holder[0] = R.plane_step(holder[0], p1m, spec)
+
+    for _ in range(5):
+        frame_1m()
+    sim = Simulation(SPHFluid.create(n=50_000))
+    sim.update_params(gravity=400.0)
+    sim.run(300)
+    cases = {"1M uniform C=128": frame_1m,
+             "50k scene after frame 300": lambda: sim.run(1)}
+    for key, frame in cases.items():
+        out[key] = timing(torch, frame, args.frames)
+    for key, frame in cases.items():
+        out[key].update(kernel_rows(torch, frame, args.frames))
+        out[key]["idle"] = 1.0 - out[key]["busy_ms"] / out[key]["event_ms"]
+    for key, frame in cases.items():
+        out[key]["event_ms_after_profiler"] = timing(torch, frame, args.frames)["event_ms"]
+    if int(holder[0].lost) != 0 or int(holder[0].live.sum()) != N_1M:
+        raise RuntimeError("1M run lost particles")
+    if int(sim.state.lost) != 0 or int(sim.state.live.sum()) != 50_000:
+        raise RuntimeError("50k run lost particles")
+
+    text = json.dumps(out, indent=1)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

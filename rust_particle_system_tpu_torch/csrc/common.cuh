@@ -1,0 +1,65 @@
+// Shared helpers for the plane kernels (sm_90a, plain C interface).
+//
+// Layout contract (the port's ops/cuda/*.py): every plane is a contiguous
+// float32 [gh, gw, C] tensor; slot s of cell (r, c) sits at ((r*gw + c)*C + s).
+// Dead slots carry x = y = SENTINEL.  One block serves one cell; its
+// blockDim.x is C rounded up to a multiple of 32, thread s owns slot s, and
+// threads s >= C only take part in the block-wide ballots.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rps {
+
+constexpr float kSentinel = 1.0e6f;
+constexpr float kLiveBelow = 0.5f * kSentinel;  // live <=> x < 0.5 * SENTINEL
+constexpr int kMaxChannels = 8;
+
+struct Fills {
+  float v[kMaxChannels];
+};
+
+// clip(int(floor((v - lo) / width)), 0, n - 1): the IEEE expression of the
+// JAX package's keying (ops/grid.py::cell_coords, rebin.py:489-494).  Built
+// without --use_fast_math, so '/' is the correctly rounded division.
+__device__ __forceinline__ int cell_of(float v, float lo, float width, int n) {
+  int k = static_cast<int>(floorf((v - lo) / width));
+  return min(max(k, 0), n - 1);
+}
+
+// Block-wide inclusive prefix counts of NF predicates at once: warp ballots
+// and popcounts, then the warps' totals through shared memory.  `scratch`
+// holds NF * 32 ints.  Every thread of the block must call it (it contains
+// two __syncthreads).  incl[f] counts threads t <= threadIdx.x with p[f];
+// total[f] counts the whole block.
+template <int NF>
+__device__ __forceinline__ void block_count(const bool (&p)[NF], int (&incl)[NF],
+                                            int (&total)[NF], int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const unsigned upto = 0xffffffffu >> (31 - lane);  // lanes 0..lane
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const unsigned b = __ballot_sync(0xffffffffu, p[f]);
+    incl[f] = __popc(b & upto);
+    if (lane == 0) scratch[f * 32 + warp] = __popc(b);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    int before = 0, all = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      const int t = scratch[f * 32 + w];
+      before += (w < warp) ? t : 0;
+      all += t;
+    }
+    incl[f] += before;
+    total[f] = all;
+  }
+  __syncthreads();
+}
+
+inline int block_threads(int C) { return ((C + 31) / 32) * 32; }
+
+}  // namespace rps

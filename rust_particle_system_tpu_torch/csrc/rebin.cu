@@ -1,0 +1,252 @@
+// K1: the lossless hole-fill rebin of plane-resident state (variant 6 semantics).
+//
+// Replaces rust_particle_system_tpu/ops/pallas/rebin.py::_make_kernel_v6
+// (driven by _rebin_v6).  Output planes and counts are bit-identical to it:
+// values only move, never change, and every decision is an integer rank.
+//
+// What it computes, per destination cell (r, c), with keys taken from (x, y)
+// by the IEEE floor expression (rebin.py:489-494):
+//   pass Y   stayers (live, key row == r) keep their slot; arrivals from rows
+//            r-1 then r+1 (slot order; "keep" is a clamped hop toward the key
+//            row, rebin.py:546-547) fill the DEAD own slots in slot order; an
+//            arrival of window rank j fills the hole of rank j iff j < #holes.
+//   Y-retention  a row-r mover that row r-1 / r+1 did not adopt stays in its
+//            slot (rebin.py:621-639).  Row r-1's decision needs row r-2's
+//            keep count, so rows r-2..r+1 of x/y are read.
+//   pass X   the same within the row, on the pass-Y result ("mid"): arrivals
+//            from columns c-1 then c+1 whose key row is r; slots whose key row
+//            is not r stay put (rebin.py:641-662).
+//   X-retention  needs mid of columns c-2..c+1 (rebin.py:682-689).
+//   counts   live slots per cell after both passes.
+//
+// Bound on the H100: memory.  Each pass reads ~10 and writes k=5 plane words
+// per slot (~200 MB per frame at 1M particles, C=128); the ranks are a few
+// ballots per slot.  The TPU built ranks from triangular matmuls and applied
+// them with one-hot matmuls because its lanes cannot scatter; here ranks are
+// __ballot_sync + __popc per warp plus a shared prefix over the warps, and an
+// arrival is placed by one shared-memory index write.  A whole grid row does
+// not fit in shared memory at 214 cells x 128 slots x 5 channels (548 KB), so
+// the two passes are two launches with "mid" in device memory: a pass-X block
+// reads its four source columns of mid from L2/HBM.
+//
+// The JAX kernel's air-window skip (rebin.py:512-538) is an exact shortcut of
+// the same result and is not needed: a block with nothing live does a few
+// empty ballots and writes fills.
+
+#include "common.cuh"
+
+namespace {
+
+using rps::cell_of;
+using rps::kLiveBelow;
+
+struct Geom {
+  int k, gh, gw, C;
+  float x_min, y_min, cell_w, cell_h;
+};
+
+// The k channel planes, passed by value (channel 0 is x, channel 1 is y).
+struct InPlanes {
+  const float* p[rps::kMaxChannels];
+};
+struct OutPlanes {
+  float* p[rps::kMaxChannels];
+};
+
+// Runs f(ch) for ch < k.  The loop is unrolled to kMaxChannels so that
+// in.p[ch], out.p[ch] and fills.v[ch] index the kernel parameters with
+// constants: a run-time index would copy the parameter structs to local memory.
+template <class F>
+__device__ __forceinline__ void for_channels(int k, F f) {
+#pragma unroll
+  for (int ch = 0; ch < rps::kMaxChannels; ++ch)
+    if (ch < k) f(ch);
+}
+
+__device__ __forceinline__ size_t slot_index(const Geom& g, int r, int c, int s) {
+  return (static_cast<size_t>(r) * g.gw + c) * g.C + s;
+}
+
+// Pass Y + Y-retention for cell (blockIdx.y, blockIdx.x): in -> mid.
+__global__ void rebin_pass_y(InPlanes in, float* __restrict__ mid, rps::Fills fills,
+                             Geom g) {
+  extern __shared__ int smem[];
+  int* scratch = smem;        // 8 * 32
+  int* src = smem + 8 * 32;   // C: window index of the arrival of each rank
+  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const bool act = s < g.C;
+  const size_t plane = static_cast<size_t>(g.gh) * g.gw * g.C;
+  const bool has_up = r >= 1, has_dn = r <= g.gh - 2;
+  const float* __restrict__ x = in.p[0];
+  const float* __restrict__ y = in.p[1];
+
+  bool live0 = false;
+  int ky0 = 0;
+  bool keep_m1 = false, keep_p1 = false, dead_m1 = false, dead_p1 = false;
+  bool keep_m2_into_m1 = false;
+  if (act) {
+    const size_t o = slot_index(g, r, c, s);
+    live0 = x[o] < kLiveBelow;
+    ky0 = cell_of(y[o], g.y_min, g.cell_h, g.gh);
+    if (has_up) {
+      const size_t u = slot_index(g, r - 1, c, s);
+      const bool l = x[u] < kLiveBelow;
+      dead_m1 = !l;
+      keep_m1 = l && cell_of(y[u], g.y_min, g.cell_h, g.gh) >= r;
+    }
+    if (has_dn) {
+      const size_t d = slot_index(g, r + 1, c, s);
+      const bool l = x[d] < kLiveBelow;
+      dead_p1 = !l;
+      keep_p1 = l && cell_of(y[d], g.y_min, g.cell_h, g.gh) <= r;
+    }
+    if (r >= 2) {  // row r-1's up group: competes with row r for r-1's holes
+      const size_t u2 = slot_index(g, r - 2, c, s);
+      keep_m2_into_m1 = x[u2] < kLiveBelow &&
+                        cell_of(y[u2], g.y_min, g.cell_h, g.gh) >= r - 1;
+    }
+  }
+  const bool dead = act && !live0;
+  const bool into_m1 = live0 && has_up && ky0 <= r - 1;  // row r-1's down group
+  const bool into_p1 = live0 && has_dn && ky0 >= r + 1;  // row r+1's up group
+
+  const bool p[8] = {keep_m1, keep_p1, dead, into_m1, into_p1, keep_m2_into_m1,
+                     dead_m1, dead_p1};
+  int inc[8], tot[8];
+  rps::block_count<8>(p, inc, tot, scratch);
+  const int n_up = tot[0], n_arr = tot[0] + tot[1], n_holes = tot[2];
+
+  if (keep_m1 && inc[0] - 1 < n_holes) src[inc[0] - 1] = s;
+  if (keep_p1 && n_up + inc[1] - 1 < n_holes) src[n_up + inc[1] - 1] = g.C + s;
+  __syncthreads();
+  if (!act) return;
+
+  const bool adopted = (into_m1 && tot[5] + inc[3] - 1 < tot[6]) ||
+                       (into_p1 && inc[4] - 1 < tot[7]);
+  const bool keep_own = live0 && (ky0 == r || !adopted);  // stayer or retained
+  const int hrank = inc[2] - 1;
+  const size_t o = slot_index(g, r, c, s);
+  if (keep_own) {
+    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = in.p[ch][o]; });
+  } else if (dead && hrank < n_arr) {
+    const int w = src[hrank];
+    const size_t from = w < g.C ? slot_index(g, r - 1, c, w)
+                                : slot_index(g, r + 1, c, w - g.C);
+    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = in.p[ch][from]; });
+  } else {
+    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = fills.v[ch]; });
+  }
+}
+
+// Pass X + X-retention + counts for cell (blockIdx.y, blockIdx.x): mid -> out.
+__global__ void rebin_pass_x(const float* __restrict__ mid, OutPlanes out,
+                             int* __restrict__ counts, rps::Fills fills, Geom g) {
+  extern __shared__ int smem[];
+  int* scratch = smem;
+  int* src = smem + 8 * 32;
+  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const bool act = s < g.C;
+  const size_t plane = static_cast<size_t>(g.gh) * g.gw * g.C;
+  const bool has_l = c >= 1, has_r = c <= g.gw - 2;
+
+  bool liveM = false;
+  int mkx = 0, mky = 0;
+  bool kg0 = false, kg1 = false, dead_l = false, dead_r = false, g0_of_l = false;
+  if (act) {
+    const size_t o = slot_index(g, r, c, s);
+    liveM = mid[o] < kLiveBelow;
+    mkx = cell_of(mid[o], g.x_min, g.cell_w, g.gw);
+    mky = cell_of(mid[plane + o], g.y_min, g.cell_h, g.gh);
+    if (has_l) {
+      const size_t u = slot_index(g, r, c - 1, s);
+      const bool l = mid[u] < kLiveBelow;
+      dead_l = !l;
+      kg0 = l && cell_of(mid[plane + u], g.y_min, g.cell_h, g.gh) == r &&
+            cell_of(mid[u], g.x_min, g.cell_w, g.gw) >= c;
+    }
+    if (has_r) {
+      const size_t d = slot_index(g, r, c + 1, s);
+      const bool l = mid[d] < kLiveBelow;
+      dead_r = !l;
+      kg1 = l && cell_of(mid[plane + d], g.y_min, g.cell_h, g.gh) == r &&
+            cell_of(mid[d], g.x_min, g.cell_w, g.gw) <= c;
+    }
+    if (c >= 2) {  // column c-1's left group: competes with column c for its holes
+      const size_t u2 = slot_index(g, r, c - 2, s);
+      g0_of_l = mid[u2] < kLiveBelow &&
+                cell_of(mid[plane + u2], g.y_min, g.cell_h, g.gh) == r &&
+                cell_of(mid[u2], g.x_min, g.cell_w, g.gw) >= c - 1;
+    }
+  }
+  const bool dead = act && !liveM;
+  const bool in_row = liveM && mky == r;
+  const bool into_l = in_row && has_l && mkx <= c - 1;  // column c-1's right group
+  const bool into_r = in_row && has_r && mkx >= c + 1;  // column c+1's left group
+
+  const bool p[8] = {kg0, kg1, dead, into_l, into_r, g0_of_l, dead_l, dead_r};
+  int inc[8], tot[8];
+  rps::block_count<8>(p, inc, tot, scratch);
+  const int n_left = tot[0], n_arr = tot[0] + tot[1], n_holes = tot[2];
+
+  if (kg0 && inc[0] - 1 < n_holes) src[inc[0] - 1] = s;
+  if (kg1 && n_left + inc[1] - 1 < n_holes) src[n_left + inc[1] - 1] = g.C + s;
+  __syncthreads();
+
+  bool live_out = false;
+  if (act) {
+    const bool adopted = (into_l && tot[5] + inc[3] - 1 < tot[6]) ||
+                         (into_r && inc[4] - 1 < tot[7]);
+    const bool keep_own = liveM && (!in_row || mkx == c || !adopted);
+    const int hrank = inc[2] - 1;
+    const size_t o = slot_index(g, r, c, s);
+    if (keep_own) {
+      for_channels(g.k, [&](int ch) { out.p[ch][o] = mid[ch * plane + o]; });
+      live_out = true;
+    } else if (dead && hrank < n_arr) {
+      const int w = src[hrank];
+      const size_t from = w < g.C ? slot_index(g, r, c - 1, w)
+                                  : slot_index(g, r, c + 1, w - g.C);
+      for_channels(g.k, [&](int ch) { out.p[ch][o] = mid[ch * plane + from]; });
+      live_out = true;
+    } else {
+      for_channels(g.k, [&](int ch) { out.p[ch][o] = fills.v[ch]; });
+    }
+  }
+  const bool q[1] = {live_out};
+  int qi[1], qt[1];
+  rps::block_count<1>(q, qi, qt, scratch);
+  if (s == 0) counts[r * g.gw + c] = qt[0];
+}
+
+}  // namespace
+
+// in_host, out_host: host arrays of k device pointers, each a [gh, gw, C] f32
+// plane (channels 0/1 are x/y); mid: [k, gh, gw, C] f32 scratch; counts:
+// [gh*gw] i32.  fills[0] must be >= 0.5 * SENTINEL (a filled slot is dead);
+// the wrapper checks it.
+extern "C" int rps_rebin(const float* const* in_host, float* mid,
+                         float* const* out_host, int* counts,
+                         const float* fills_host, int k, int gh, int gw, int C,
+                         float x_min, float y_min, float cell_w, float cell_h,
+                         void* stream) {
+  if (k < 2 || k > rps::kMaxChannels || C < 1 || C > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rps::Fills fills{};
+  InPlanes in{};
+  OutPlanes out{};
+  for (int i = 0; i < k; ++i) {
+    fills.v[i] = fills_host[i];
+    in.p[i] = in_host[i];
+    out.p[i] = out_host[i];
+  }
+  const Geom g{k, gh, gw, C, x_min, y_min, cell_w, cell_h};
+  const dim3 grid(gw, gh);
+  const int threads = rps::block_threads(C);
+  const size_t shmem = (8 * 32 + C) * sizeof(int);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rebin_pass_y<<<grid, threads, shmem, st>>>(in, mid, fills, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rebin_pass_x<<<grid, threads, shmem, st>>>(mid, out, counts, fills, g);
+  return static_cast<int>(cudaGetLastError());
+}

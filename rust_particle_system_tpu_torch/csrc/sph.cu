@@ -1,0 +1,223 @@
+// K2 (density walk) and K3 (fused pressure + viscosity walk with the frame
+// tail in its epilogue) over [gh, gw, C] cell planes.
+//
+// Replace rust_particle_system_tpu/ops/pallas/sph.py::_make_seg_kernel with
+// _density_update (via density_planes) and with _force_update +
+// _force_finalize_integrated (via force_planes_integrated).
+//
+// What they compute, per own slot i, over the 3x3 neighbour cells j (self
+// included; sentinel-parked slots contribute exactly 0 and are skipped):
+//   K2   rho = dnorm * sum v^2, rhon = nnorm * sum v^3, v = max(h - d, 0)
+//        (sph.py:295-310).  Slots whose walk position is parked get 0.
+//   K3   mag = (P1_i + P1_j) v + (NPo_i + NPn_j) v^2 over d = d2 * inv_d, with
+//        the eps guard d2 <= eps2 -> inv_d = 0, d = 0, fy += mag (sph.py:
+//        333-353); viscosity sum u^3, sum v_j u^3 with u = max(h^2 - d2, 0);
+//        then the closed-form self term, the velocity combine, the deferred
+//        restore, Euler, the abs-damped bounce and the dead-slot park
+//        (sph.py:366-419).  The epilogue runs for every slot, deferred ones
+//        included (their walk position is parked while npx is live).
+//
+// Bound on the H100: arithmetic on the pair loop (one sqrt and one divide per
+// pair in K3), not memory: each block reads its 9 neighbour cells once.  The
+// TPU evaluated all C x 9C slot pairs as dense vector tiles, lane-padded to
+// 128, gated by 32-slot chunks.  Here a block stages only the LIVE neighbour
+// slots in shared memory (compacted with ballots), so the pair loop runs over
+// the live count, not 9C, and threads of dead own slots skip it.  Every thread
+// reads the same staged neighbour at a time: a shared-memory broadcast.
+// 1.0f / sqrtf is used, not rsqrtf, which is not correctly rounded.  nvcc
+// contracts a * b + c into fused multiply-adds (its default, as XLA does on
+// the CPU); the plain version does not, so the two differ by rounding only.
+
+#include "common.cuh"
+
+namespace {
+
+using rps::kLiveBelow;
+
+// Stage the live slots of the in-grid 3x3 neighbours of (r, c) into shared
+// arrays dst[ch][0..m), cell order (dy, dx) row-major, slot order within a
+// cell.  Returns m.  Every thread of the block must call it.
+template <int NCH>
+__device__ int stage_live_neighbours(const float* const (&src)[NCH],
+                                     float* const (&dst)[NCH], int* scratch,
+                                     int r, int c, int gh, int gw, int C) {
+  const int s = threadIdx.x;
+  int m = 0;
+  for (int dy = -1; dy <= 1; ++dy) {
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int rr = r + dy, cc = c + dx;
+      if (rr < 0 || rr >= gh || cc < 0 || cc >= gw) continue;  // block-uniform
+      const size_t o = (static_cast<size_t>(rr) * gw + cc) * C + s;
+      const bool live = s < C && src[0][o] < kLiveBelow;
+      const bool p[1] = {live};
+      int inc[1], tot[1];
+      rps::block_count<1>(p, inc, tot, scratch);
+      if (live) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) dst[ch][m + inc[0] - 1] = src[ch][o];
+      }
+      m += tot[0];
+    }
+  }
+  __syncthreads();
+  return m;
+}
+
+__global__ void density_kernel(const float* __restrict__ px, const float* __restrict__ py,
+                               float* __restrict__ rho, float* __restrict__ rhon,
+                               int gh, int gw, int C, float h, float dnorm,
+                               float nnorm) {
+  extern __shared__ float sm[];
+  const int cap9 = 9 * C;
+  float* const dst[2] = {sm, sm + cap9};
+  int* scratch = reinterpret_cast<int*>(sm + 2 * cap9);
+  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const float* const src[2] = {px, py};
+  const int m = stage_live_neighbours<2>(src, dst, scratch, r, c, gh, gw, C);
+  if (s >= C) return;
+
+  const size_t o = (static_cast<size_t>(r) * gw + c) * C + s;
+  const float ox = px[o], oy = py[o];
+  if (!(ox < kLiveBelow)) {
+    rho[o] = 0.0f;
+    rhon[o] = 0.0f;
+    return;
+  }
+  const float* sx = dst[0];
+  const float* sy = dst[1];
+  float s2 = 0.0f, s3 = 0.0f;
+  for (int j = 0; j < m; ++j) {
+    const float dx = sx[j] - ox, dy = sy[j] - oy;
+    const float d = sqrtf(dx * dx + dy * dy);
+    const float v = fmaxf(h - d, 0.0f);
+    const float vv = v * v;
+    s2 += vv;
+    s3 += vv * v;
+  }
+  rho[o] = dnorm * s2;
+  rhon[o] = nnorm * s3;
+}
+
+struct ForceScalars {
+  float h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp;
+};
+
+__device__ __forceinline__ void bounce(float& x, float& v, float lo, float hi,
+                                       float damp) {
+  v = (x <= lo) ? fabsf(v) * damp : v;
+  v = (x >= hi) ? -fabsf(v) * damp : v;
+  x = fminf(fmaxf(x, lo), hi);
+}
+
+__global__ void force_integrated_kernel(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ P1, const float* __restrict__ NPn,
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const float* __restrict__ NPo, const float* __restrict__ npx,
+    const float* __restrict__ npy, float* __restrict__ out_px,
+    float* __restrict__ out_py, float* __restrict__ out_vx,
+    float* __restrict__ out_vy, int gh, int gw, int C, ForceScalars k) {
+  extern __shared__ float sm[];
+  const int cap9 = 9 * C;
+  float* const dst[6] = {sm, sm + cap9, sm + 2 * cap9, sm + 3 * cap9,
+                         sm + 4 * cap9, sm + 5 * cap9};
+  int* scratch = reinterpret_cast<int*>(sm + 6 * cap9);
+  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const float* const src[6] = {px, py, P1, NPn, vx, vy};
+  const int m = stage_live_neighbours<6>(src, dst, scratch, r, c, gh, gw, C);
+  if (s >= C) return;
+
+  const size_t o = (static_cast<size_t>(r) * gw + c) * C + s;
+  const float ox = px[o], oy = py[o], oP1 = P1[o], oNPn = NPn[o];
+  const float ovx = vx[o], ovy = vy[o], oNPo = NPo[o];
+  const float onpx = npx[o], onpy = npy[o];
+  const float hh = k.h * k.h;
+  const bool walk_live = ox < kLiveBelow;
+
+  float fx = 0.0f, fy = 0.0f, S = 0.0f, Sx = 0.0f, Sy = 0.0f;
+  if (walk_live) {
+    const float *sx = dst[0], *sy = dst[1], *sP1 = dst[2], *sNPn = dst[3];
+    const float *svx = dst[4], *svy = dst[5];
+    for (int j = 0; j < m; ++j) {
+      const float dx = sx[j] - ox, dy = sy[j] - oy;
+      const float d2 = dx * dx + dy * dy;
+      const bool near0 = d2 <= k.eps2;
+      const float inv_d = near0 ? 0.0f : 1.0f / sqrtf(d2);
+      const float d = d2 * inv_d;
+      const float v = fmaxf(k.h - d, 0.0f);
+      const float vv = v * v;
+      const float mag = (oP1 + sP1[j]) * v + (oNPo + sNPn[j]) * vv;
+      const float mm = mag * inv_d;
+      const float u = fmaxf(hh - d2, 0.0f);
+      const float u3 = u * u * u;
+      fx += dx * mm;
+      fy += dy * mm + (near0 ? mag : 0.0f);
+      S += u3;
+      Sx += svx[j] * u3;
+      Sy += svy[j] * u3;
+    }
+  }
+  // Self pair (d = 0, fy fallback) removed in closed form; viscosity combine.
+  fy -= (oP1 + oP1) * k.h + (oNPo + oNPn) * hh;
+  const float fvx = Sx - ovx * S, fvy = Sy - ovy * S;
+  float nvx = ovx + fx * k.dt + fvx * k.vscale;
+  float nvy = ovy + fy * k.dt + fvy * k.vscale;
+  const bool live = onpx < kLiveBelow;
+  if (!walk_live && live) {  // deferred: keep the post-gravity velocity
+    nvx = ovx;
+    nvy = ovy;
+  }
+  float x2 = onpx + (nvx - ovx) * k.dt;
+  float y2 = onpy + (nvy - ovy) * k.dt;
+  bounce(x2, nvx, k.x_min, k.x_max, k.damp);
+  bounce(y2, nvy, k.y_min, k.y_max, k.damp);
+  out_px[o] = live ? x2 : rps::kSentinel;
+  out_py[o] = live ? y2 : rps::kSentinel;
+  out_vx[o] = live ? nvx : 0.0f;
+  out_vy[o] = live ? nvy : 0.0f;
+}
+
+cudaError_t set_shmem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace
+
+// All planes [gh, gw, C] f32.  rho/rhon: outputs (0 at parked walk slots).
+extern "C" int rps_density(const float* px, const float* py, float* rho, float* rhon,
+                           int gh, int gw, int C, float h, float dnorm, float nnorm,
+                           void* stream) {
+  if (C < 1 || C > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = 2 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
+  cudaError_t err = set_shmem(reinterpret_cast<const void*>(density_kernel), shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  density_kernel<<<dim3(gw, gh), rps::block_threads(C), shmem,
+                   static_cast<cudaStream_t>(stream)>>>(px, py, rho, rhon, gh, gw, C,
+                                                         h, dnorm, nnorm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Walk planes px/py (deferred slots parked), P1/NPn/vx/vy; own-only NPo and the
+// true predicted positions npx/npy.  Outputs: the final px, py, vx, vy planes.
+extern "C" int rps_force_integrated(const float* px, const float* py, const float* P1,
+                                    const float* NPn, const float* vx, const float* vy,
+                                    const float* NPo, const float* npx,
+                                    const float* npy, float* out_px, float* out_py,
+                                    float* out_vx, float* out_vy, int gh, int gw, int C,
+                                    float h, float eps2, float dt, float vscale,
+                                    float x_min, float x_max, float y_min, float y_max,
+                                    float damp, void* stream) {
+  if (C < 1 || C > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = 6 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
+  cudaError_t err =
+      set_shmem(reinterpret_cast<const void*>(force_integrated_kernel), shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
+  force_integrated_kernel<<<dim3(gw, gh), rps::block_threads(C), shmem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
+      C, k);
+  return static_cast<int>(cudaGetLastError());
+}

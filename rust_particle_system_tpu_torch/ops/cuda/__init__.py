@@ -1,0 +1,10 @@
+"""Wrappers of the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
+version beside it for CPU tensors; each counts its launches in ``.launches``.
+
+    K1  rebin.rebin_planes                  csrc/rebin.cu
+    K2  sph.density_planes                  csrc/sph.cu
+    K3  sph.force_planes_integrated         csrc/sph.cu
+    K5  plane_build.cell_planes_aos         csrc/plane_build.cu
+"""

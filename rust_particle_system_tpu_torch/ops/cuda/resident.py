@@ -1,0 +1,201 @@
+"""Plane-RESIDENT SPH: state lives in cell planes across frames; no per-frame sort.
+
+Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
+single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
+K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
+the lossless rebin K1, the defer mask, the density walk K2, the pressure terms,
+the fused force walk K3 with the frame tail) and ``to_particle_state``.
+
+The frame counter is a host-side int, so the warm-up gate needs no device read;
+``lost`` stays a device tensor and is only read back when asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ...core import kernels as K
+from ...core.params import SimParams, f32_mul
+from ...core.state import ParticleState
+from ..grid import GridSpec, build_grid, cell_index
+from .plane_build import cell_planes_aos
+from .rebin import SENTINEL, rebin_planes
+from .sph_step import _forces_from_cells
+
+MAX_IDS = 1 << 24  # ids ride an f32 channel: exact up to 2^24
+MAX_SPILL = 4096  # overflow rows the init spill places (as JAX's max_spill)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneState:
+    """Cell-plane particle state ``[gh, gw, C]``.  Dead slots: px/py = SENTINEL,
+    vx/vy/idsf = 0.  ``n`` is the initial particle count; ``lost`` (int32 device
+    scalar) counts particles dropped at the initial binning, so the live total
+    is always ``n - lost``."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    idsf: torch.Tensor  # original index as an f32 value
+    frame: int
+    lost: torch.Tensor
+    n: int
+
+    @property
+    def live(self) -> torch.Tensor:
+        return self.px < 0.5 * SENTINEL
+
+    def to_particle_state(self, params: SimParams | None = None) -> ParticleState:
+        return to_particle_state(self, params)
+
+
+def _spill_offsets():
+    """The 5x5 neighbourhood minus the centre, by distance then row-major."""
+    return sorted(
+        [(dy, dx) for dy in range(-2, 3) for dx in range(-2, 3) if (dy, dx) != (0, 0)],
+        key=lambda o: (o[0] * o[0] + o[1] * o[1], o[0], o[1]))
+
+
+def _spill_init_overflow(ch, packed, keys, slot, spec: GridSpec):
+    """Zero-loss initial binning: place capacity-overflow rows (``slot >= C`` in
+    the sorted stream) into the nearest neighbour cell with a free slot, in
+    sorted order, counts updated as it goes (the JAX ``_spill_init_overflow``).
+
+    The placement loop runs on the host over at most ``MAX_SPILL`` rows, and
+    only when there is overflow (one device read at init); the values are then
+    written into the planes in one scatter.  Returns (planes, spilled)."""
+    gh, gw, C = spec.gh, spec.gw, spec.capacity
+    over = slot >= C
+    n_over = int(over.sum())
+    if n_over == 0:
+        return ch, 0
+    idx = torch.nonzero(over).flatten()[:MAX_SPILL]
+    counts = (ch[0] < 0.5 * SENTINEL).sum(-1).cpu().numpy().astype(np.int64)
+    key_h = keys[idx].cpu().numpy()
+    offs = _spill_offsets()
+    rows, ty, tx, ts = [], [], [], []
+    for i, key in enumerate(key_h):
+        cy, cx = divmod(int(key), gw)
+        for dy, dx in offs:
+            ny = min(max(cy + dy, 0), gh - 1)
+            nx = min(max(cx + dx, 0), gw - 1)
+            # clipped offsets can alias the (full) home cell; exclude it
+            if counts[ny, nx] < C and (ny != cy or nx != cx):
+                rows.append(i)
+                ty.append(ny)
+                tx.append(nx)
+                ts.append(int(counts[ny, nx]))
+                counts[ny, nx] += 1
+                break
+    if rows:
+        dev = ch[0].device
+        sel = idx[torch.as_tensor(rows, device=dev)]
+        at = tuple(torch.as_tensor(a, device=dev) for a in (ty, tx, ts))
+        vals = packed[sel]
+        ch = [p.index_put(at, vals[:, c]) for c, p in enumerate(ch)]
+    return ch, len(rows)
+
+
+def plane_state_from_particles(state: ParticleState, spec: GridSpec) -> PlaneState:
+    """Initial binning: one sort + gather + plane build (the only one ever run).
+
+    Per-cell capacity overflow is re-homed to the nearest free neighbour cell
+    instead of dropped; ``lost`` is 0 unless a whole 5x5 neighbourhood is
+    packed solid."""
+    state = state.with_ids()
+    n = state.n
+    if n > MAX_IDS:
+        raise ValueError(f"plane-resident ids are exact only to 2^24 (got {n})")
+    gh, gw, C = spec.gh, spec.gw, spec.capacity
+    grid = build_grid(spec, state.pos)
+    idsf = state.ids.to(torch.float32)
+    packed = torch.cat([state.pos, state.vel, idsf[:, None]], dim=-1)[grid.perm.long()]
+    fills = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)
+    cells = cell_planes_aos(packed, grid.starts, spec.num_cells, C, fills)
+    ch = [cells[..., i].reshape(gh, gw, C).contiguous() for i in range(5)]
+    ch, spilled = _spill_init_overflow(ch, packed, grid.sorted_keys, grid.slot, spec)
+    return PlaneState(px=ch[0], py=ch[1], vx=ch[2], vy=ch[3], idsf=ch[4],
+                      frame=state.frame, lost=(grid.overflow - spilled).to(torch.int32),
+                      n=n)
+
+
+def _planes_to_particles(ps: PlaneState):
+    """Live slots back to an [n]-row stream ordered by id; rows of dropped
+    particles come last (ids >= n, SENTINEL positions, zero velocity)."""
+    n = ps.n
+    live = ps.live.reshape(-1)
+    ids = ps.idsf.to(torch.int32).reshape(-1)
+    key = torch.where(live, ids, n)
+    order = torch.argsort(key, stable=True)[:n]
+    livc = live[order]
+    pos = torch.stack([ps.px.reshape(-1)[order], ps.py.reshape(-1)[order]], dim=-1)
+    vel = torch.stack([ps.vx.reshape(-1)[order], ps.vy.reshape(-1)[order]], dim=-1)
+    vel = torch.where(livc[:, None], vel, 0.0)
+    extra = n + torch.arange(n, dtype=torch.int32, device=ids.device)
+    ids_out = torch.where(livc, key[order], extra)
+    return pos, vel, ids_out, livc
+
+
+def to_particle_state(ps: PlaneState, params: SimParams | None = None
+                      ) -> ParticleState:
+    """Id-ordered particle stream; colour white during warm-up, else the
+    kinetic-energy ramp."""
+    pos, vel, ids_out, _ = _planes_to_particles(ps)
+    if params is not None and ps.frame > params.shader_delay:
+        color = K.energy_color(vel, params.max_energy)
+    else:
+        color = torch.ones((ps.n, 4), dtype=torch.float32, device=pos.device)
+    return ParticleState(pos=pos, vel=vel, color=color, frame=ps.frame, ids=ids_out)
+
+
+def predict_planes(ps: PlaneState, params: SimParams) -> list:
+    """Gravity + predict (compute_shader.wgsl:397-405): the rebin's input
+    channels [pred x, pred y, vx, vy, idsf], dead slots parked."""
+    dt = params.dt
+    live = ps.live
+    vxp = torch.where(live, ps.vx, 0.0)
+    vyp = torch.where(live, ps.vy - f32_mul(params.gravity, dt), 0.0)
+    predx = torch.where(live, ps.px + vxp * dt, SENTINEL)
+    predy = torch.where(live, ps.py + vyp * dt, SENTINEL)
+    return [predx, predy, vxp, vyp, ps.idsf]
+
+
+def walk_positions(npx, npy, spec: GridSpec):
+    """The walks' position planes: DEFERRED slots (live, but resident in another
+    cell than their key) are parked at SENTINEL (resident.py:264-273)."""
+    kx = cell_index(npx, spec.x_min, spec.cell_width, spec.gw)
+    ky = cell_index(npy, spec.y_min, spec.cell_size, spec.gh)
+    cellx = torch.arange(spec.gw, dtype=torch.int32, device=npx.device)[None, :, None]
+    celly = torch.arange(spec.gh, dtype=torch.int32, device=npx.device)[:, None, None]
+    defer = (npx < 0.5 * SENTINEL) & ((kx != cellx) | (ky != celly))
+    return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
+
+
+def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec) -> PlaneState:
+    """One live physics frame: gravity + predict, rebin (K1), defer mask, density
+    walk (K2), pressure terms, fused force walk with the frame tail (K3).
+
+    The rebin is LOSSLESS: movers that find no free slot, and >1-cell/frame
+    movers in transit, stay in their slot and are DEFERRED — parked out of the
+    force walks for the frame (gravity + integrate + bounce only)."""
+    live_before = ps.live.sum(dtype=torch.int32)
+    (npx, npy, nvx0, nvy0, nidsf), counts = rebin_planes(
+        predict_planes(ps, params), spec)
+    kept = counts.clamp_max(spec.capacity).sum(dtype=torch.int32)
+    fpx, fpy = walk_positions(npx, npy, spec)
+    px2, py2, vx2, vy2 = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec,
+                                            params)
+    live2 = npx < 0.5 * SENTINEL
+    return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2,
+                      idsf=torch.where(live2, nidsf, 0.0), frame=ps.frame,
+                      lost=ps.lost + (live_before - kept), n=ps.n)
+
+
+def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec) -> PlaneState:
+    """Warm-up-honouring full frame: physics once ``frame >= shader_delay``."""
+    stepped = plane_physics(ps, params, spec) if ps.frame >= params.shader_delay else ps
+    return dataclasses.replace(stepped, frame=ps.frame + 1)

@@ -1,0 +1,242 @@
+"""SPH neighbourhood walks over ``[gh, gw, C]`` cell planes.
+
+Counterpart of ``rust_particle_system_tpu/ops/pallas/sph.py`` for the classic
+one-cell-per-slot-row layout:
+
+* :func:`density_planes` — kernel K2 (``csrc/sph.cu``), replacing the Pallas
+  ``_make_seg_kernel`` + ``_density_update``: (rho, rhon) = norms x (sum v^2,
+  sum v^3) over the 3x3 cells, v = max(h - d, 0), self included.
+* :func:`pressure_terms` — per-slot terms, plain torch (JAX computes them
+  outside Pallas too).
+* :func:`force_planes_integrated` — kernel K3, replacing ``_make_seg_kernel`` +
+  ``_force_update`` + ``_force_finalize_integrated``: the fused pressure,
+  near-pressure and viscosity walk with the frame tail (velocity combine,
+  deferred restore, Euler, bounce, park) in its epilogue.
+
+Conventions (as in JAX): dead slots and deferred slots carry position
+SENTINEL in the walk planes, so every pair with them weighs exactly 0.  Both
+walks give 0 accumulators to slots whose walk position is parked (the JAX
+kernel leaves finite garbage there or zeroes a gated chunk; those values are
+never read back).
+
+The walks are arithmetic-bound on the H100 (a sqrt and a divide per pair in
+K3).  The kernels stage only the live neighbour slots of a cell in shared
+memory, so the pair loop runs over live neighbours instead of the TPU's dense,
+lane-padded 9C window.  The plain versions below evaluate the dense window in
+row chunks so that they fit in device memory at the main-path size.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core import kernels as K
+from ...core.params import SimParams, f32, f32_mul
+from . import _lib
+from .rebin import SENTINEL
+
+EPS_DIST = 1e-4  # direction guard (compute_shader.wgsl:305)
+EPS2 = float(np.float32(EPS_DIST) ** 2)  # float32(1e-4)^2 in f32, as JAX forms it
+
+# Plain versions: pair elements per row chunk (about 128 MB per f32 temporary).
+PLAIN_CHUNK_ELEMS = 1 << 25
+
+
+def _live(x):
+    return x < 0.5 * SENTINEL
+
+
+def _windows(planes_fills, r0: int, r1: int, gw: int):
+    """Per plane: the 3x3 neighbourhood of rows r0..r1 as ``[R, gw, 9, C]``
+    (offsets (dy, dx) row-major, ghost cells at the channel fill)."""
+    out = []
+    for p, fill in planes_fills:
+        gh, _, C = p.shape
+        lo, hi = max(r0 - 1, 0), min(r1 + 1, gh)
+        pad = torch.full((r1 - r0 + 2, gw + 2, C), fill, dtype=p.dtype,
+                         device=p.device)
+        pad[lo - (r0 - 1): hi - (r0 - 1), 1: gw + 1] = p[lo:hi]
+        out.append(torch.stack(
+            [pad[dy: dy + r1 - r0, dx: dx + gw] for dy in range(3)
+             for dx in range(3)], dim=2))
+    return out
+
+
+def _chunk_rows(gw: int, C: int) -> int:
+    return max(1, PLAIN_CHUNK_ELEMS // (gw * C * 9 * C))
+
+
+def _live_slot_bound(px, r0: int, r1: int) -> int:
+    """1 + the highest slot index that is live in rows r0-1..r1 (0 if none).
+
+    Slots above it are parked in every own and neighbour cell of the chunk, so
+    they add exactly 0 to every sum: the plain walks drop them (a host read per
+    chunk; the plain versions are references, not the hot path)."""
+    rows = px[max(r0 - 1, 0): r1 + 1]
+    any_live = _live(rows).flatten(0, 1).any(dim=0)
+    idx = torch.nonzero(any_live)
+    return int(idx.max()) + 1 if idx.numel() else 0
+
+
+def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float):
+    """Plain PyTorch version of K2."""
+    gh, gw, C = px.shape
+    rho = torch.empty_like(px)
+    rhon = torch.empty_like(px)
+    step = _chunk_rows(gw, C)
+    rho.zero_()
+    rhon.zero_()
+    for r0 in range(0, gh, step):
+        r1 = min(gh, r0 + step)
+        c = _live_slot_bound(px, r0, r1)
+        if c == 0:
+            continue
+        pxc, pyc = px[..., :c], py[..., :c]
+        nx, ny = _windows([(pxc, SENTINEL), (pyc, SENTINEL)], r0, r1, gw)
+        ox, oy = pxc[r0:r1, :, :, None, None], pyc[r0:r1, :, :, None, None]
+        dx = nx[:, :, None] - ox  # [R, gw, c(own), 9, c(nbr)]
+        dy = ny[:, :, None] - oy
+        v = (h - torch.sqrt(dx * dx + dy * dy)).clamp_min(0.0)
+        vv = v * v
+        own_live = _live(pxc[r0:r1])
+        rho[r0:r1, :, :c] = torch.where(own_live, dnorm * vv.sum(-2).sum(-1), 0.0)
+        rhon[r0:r1, :, :c] = torch.where(own_live,
+                                         nnorm * (vv * v).sum(-2).sum(-1), 0.0)
+    return rho, rhon
+
+
+def density_planes(px, py, params: SimParams):
+    """(rho, rhon) ``[gh, gw, C]`` from walk position planes.  Launches K2 for
+    CUDA tensors; runs the plain version for CPU tensors."""
+    h = params.smoothing_radius
+    dn, nn = params.density_kernel_norm, params.near_density_kernel_norm
+    if _lib.dispatch(px) == "plain":
+        return density_planes_plain(px, py, h, dn, nn)
+    _lib.require_cuda_planes(px, py)
+    gh, gw, C = px.shape
+    rho = torch.empty_like(px)
+    rhon = torch.empty_like(px)
+    lib = _lib.library()
+    _lib.check("rps_density", lib.rps_density(
+        px.data_ptr(), py.data_ptr(), rho.data_ptr(), rhon.data_ptr(),
+        gh, gw, C, h, dn, nn, _lib.stream()))
+    density_planes.launches += 1
+    return rho, rhon
+
+
+density_planes.launches = 0
+
+
+def pressure_terms(rho, rhon, params: SimParams):
+    """Per-slot pressure terms pre-scaled by the pair-loop scalars:
+    (alpha p / rho^2, beta np / rho^2, beta np / (rho rhon)), guarded for
+    empties; alpha = -2 density norm, beta = -3 near-density norm."""
+    rho_safe = torch.where(rho > 0, rho, 1.0)
+    rhon_safe = torch.where(rhon > 0, rhon, 1.0)
+    alpha = f32(-2.0 * params.density_kernel_norm)
+    beta = f32(-3.0 * params.near_density_kernel_norm)
+    inv_rho2 = 1.0 / (rho_safe * rho_safe)
+    p = (rho - params.target_density) * params.pressure_multiplier
+    np_ = rhon * params.near_density_multiplier
+    return (
+        alpha * (p * inv_rho2),
+        beta * (np_ * inv_rho2),
+        beta * (np_ / (rho_safe * rhon_safe)),
+    )
+
+
+def force_scalars(params: SimParams) -> tuple:
+    """(h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damping), with
+    vscale = viscosity norm x strength x dt formed in f32 as JAX does."""
+    vscale = f32_mul(f32_mul(params.viscosity_kernel_norm,
+                             params.viscosity_strength), params.dt)
+    return (params.smoothing_radius, EPS2, params.dt, vscale, *params.bounds,
+            params.damping_factor)
+
+
+def tail_plain(fx, fy, S, Sx, Sy, own, scal):
+    """The integrated epilogue (self term, velocity combine, deferred restore,
+    Euler, bounce, park) on per-slot tensors; ``own`` = (px, py, P1, NPn, vx, vy,
+    NPo, npx, npy) walk/own values."""
+    h, _, dt, vscale, x_min, x_max, y_min, y_max, damp = scal
+    ox, _, oP1, oNPn, ovx, ovy, oNPo, onpx, onpy = own
+    fy = fy - ((oP1 + oP1) * h + (oNPo + oNPn) * (h * h))
+    fvx, fvy = Sx - ovx * S, Sy - ovy * S
+    nvx = ovx + fx * dt + fvx * vscale
+    nvy = ovy + fy * dt + fvy * vscale
+    live = _live(onpx)
+    defer = ~_live(ox) & live
+    nvx = torch.where(defer, ovx, nvx)
+    nvy = torch.where(defer, ovy, nvy)
+    x2, nvx = K.bounce_axis(onpx + (nvx - ovx) * dt, nvx, x_min, x_max, damp)
+    y2, nvy = K.bounce_axis(onpy + (nvy - ovy) * dt, nvy, y_min, y_max, damp)
+    return (torch.where(live, x2, SENTINEL), torch.where(live, y2, SENTINEL),
+            torch.where(live, nvx, 0.0), torch.where(live, nvy, 0.0))
+
+
+def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                                  scal: tuple):
+    """Plain PyTorch version of K3."""
+    h, eps2 = scal[0], scal[1]
+    gh, gw, C = px.shape
+    outs = [torch.empty_like(px) for _ in range(4)]
+    step = _chunk_rows(gw, C)
+    for r0 in range(0, gh, step):
+        r1 = min(gh, r0 + step)
+        own = [t[r0:r1] for t in (px, py, P1, NPn, vx, vy, NPo, npx, npy)]
+        accs = [torch.zeros_like(own[0]) for _ in range(5)]
+        c = _live_slot_bound(px, r0, r1)
+        if c:
+            nx, ny, nP1, nNPn, nvx, nvy = _windows(
+                [(px[..., :c], SENTINEL), (py[..., :c], SENTINEL), (P1[..., :c], 0.0),
+                 (NPn[..., :c], 0.0), (vx[..., :c], 0.0), (vy[..., :c], 0.0)],
+                r0, r1, gw)
+            e = lambda t: t[:, :, :c, None, None]
+            n = lambda t: t[:, :, None]
+            dx = n(nx) - e(own[0])
+            dy = n(ny) - e(own[1])
+            d2 = dx * dx + dy * dy
+            near0 = d2 <= eps2
+            inv_d = torch.where(near0, 0.0, torch.rsqrt(d2))
+            v = (h - d2 * inv_d).clamp_min(0.0)
+            mag = (e(own[2]) + n(nP1)) * v + (e(own[6]) + n(nNPn)) * (v * v)
+            m = mag * inv_d
+            u = (h * h - d2).clamp_min(0.0)
+            u3 = u * u * u
+            walk_live = _live(own[0][..., :c])
+            sums = (dx * m, dy * m + torch.where(near0, mag, 0.0), u3,
+                    n(nvx) * u3, n(nvy) * u3)
+            for a, t in zip(accs, sums):
+                a[..., :c] = torch.where(walk_live, t.sum(-2).sum(-1), 0.0)
+        for o, t in zip(outs, tail_plain(*accs, own, scal)):
+            o[r0:r1] = t
+    return tuple(outs)
+
+
+def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                            params: SimParams):
+    """The fused pressure + viscosity walk with the frame tail in its epilogue.
+
+    Walk planes ``px, py`` (deferred slots parked at SENTINEL), per-slot terms
+    ``P1, NPn`` and velocities ``vx, vy`` on the neighbour side; ``NPo`` and the
+    true predicted positions ``npx, npy`` on the own side.  Returns the FINAL
+    (px, py, vx, vy) planes.  Launches K3 for CUDA tensors; runs the plain
+    version for CPU tensors."""
+    scal = force_scalars(params)
+    if _lib.dispatch(px) == "plain":
+        return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx,
+                                             npy, scal)
+    ins = (px, py, P1, NPn, vx, vy, NPo, npx, npy)
+    _lib.require_cuda_planes(*ins)
+    gh, gw, C = px.shape
+    outs = [torch.empty_like(px) for _ in range(4)]
+    lib = _lib.library()
+    _lib.check("rps_force_integrated", lib.rps_force_integrated(
+        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
+        gh, gw, C, *scal, _lib.stream()))
+    force_planes_integrated.launches += 1
+    return tuple(outs)
+
+
+force_planes_integrated.launches = 0

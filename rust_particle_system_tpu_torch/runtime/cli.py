@@ -1,0 +1,92 @@
+"""Command-line harness for the SPH fluid.
+
+Counterpart of ``rust_particle_system_tpu/runtime/cli.py`` for the ported main
+path:
+
+    python -m rust_particle_system_tpu_torch.runtime.cli --n 50000 --frames 300 \\
+        --set gravity=400 --stats
+    python -m rust_particle_system_tpu_torch.runtime.cli --device cpu --n 2000 \\
+        --frames 20 --resume jax_checkpoint.npz
+
+``--resume`` loads a PlaneState checkpoint written by the JAX package's
+``runtime/checkpoint.save`` (see ``interop.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from .. import interop
+from ..models.sph import SPHFluid
+from .simulation import Simulation
+
+NOT_PORTED = {
+    "render": "ROADMAP Queue 1 #7 (the row-strip rasterizer)",
+    "video": "ROADMAP Queue 1 #7 (the row-strip rasterizer)",
+    "save": "ROADMAP Queue 1 #8 (checkpoint writing from the CLI)",
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="SPH fluid on PyTorch + CUDA")
+    ap.add_argument("--model", choices=["sph"], default="sph")
+    ap.add_argument("--n", type=int, default=50_000)
+    ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain)")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override a param field (repeatable), e.g. gravity=500")
+    ap.add_argument("--stats", action="store_true",
+                    help="validate invariants and print state statistics at the end")
+    ap.add_argument("--resume", default=None,
+                    help="load a PlaneState checkpoint (.npz, JAX layout) first")
+    for flag in NOT_PORTED:
+        ap.add_argument(f"--{flag}", default=None, help="not yet ported")
+    args = ap.parse_args(argv)
+
+    for flag, where in NOT_PORTED.items():
+        if getattr(args, flag) is not None:
+            print(f"--{flag} is not yet ported ({where})", file=sys.stderr)
+            return 2
+
+    model = SPHFluid.create(n=args.n, device=args.device)
+    sim = Simulation(model, n=args.n, seed=args.seed)
+    if args.resume:
+        state, params = interop.load_npz(args.resume, device=model.device)
+        grid = model.grid
+        if tuple(state.px.shape) != (grid.gh, grid.gw, grid.capacity):
+            raise SystemExit(
+                f"checkpoint planes {tuple(state.px.shape)} do not match this "
+                f"model's grid {(grid.gh, grid.gw, grid.capacity)}")
+        sim.state, sim.n = state, state.n
+        if params is not None:
+            sim.params = params
+        print(f"resumed from {args.resume} at frame {state.frame}"
+              + (" (params restored)" if params is not None else ""))
+
+    overrides = {}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        overrides[k] = float(v)
+    if overrides:
+        sim.update_params(**overrides)
+
+    t0 = time.perf_counter()
+    sim.run(args.frames)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    rate = args.frames * sim.n / max(elapsed, 1e-9)
+    print(f"sph: {args.frames} frames x {sim.n} particles on {model.device} in "
+          f"{elapsed:.2f}s ({rate:,.0f} particle-steps/s, incl. kernel build)")
+    if args.stats:
+        print(sim.stats())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
