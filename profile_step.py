@@ -4,12 +4,14 @@
     python3 profile_step.py [--frames 100] [--out breakdown.json]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc; it
-imports nothing of JAX.  Two configurations, the ones ``chip_smoke.py`` times:
+imports nothing of JAX.  Two configurations, the ones ``chip_smoke.py`` times,
+each as the step alone and as the rendered frame (``step_and_render``, the
+step plus the 1080p image through the plane rasterizer):
 
   * 1M particles, uniform, C=128, after 5 live frames;
   * the 50k reference scene (gravity 400) after 300 frames.
 
-For each it measures, over ``--frames`` frames each:
+For each case it measures, over ``--frames`` frames each:
 
   event_ms    ms per frame between CUDA events (the method of
               ``chip_smoke.py``, which averages 40 frames at 1M and 100 at 50k);
@@ -102,6 +104,7 @@ def main() -> int:
     from rust_particle_system_tpu_torch.models.sph import SPHFluid
     from rust_particle_system_tpu_torch.ops.cuda import resident as R
     from rust_particle_system_tpu_torch.ops.grid import GridSpec
+    from rust_particle_system_tpu_torch.render import RenderSpec
     from rust_particle_system_tpu_torch.runtime.simulation import Simulation
 
     card = gpu_line()
@@ -116,13 +119,23 @@ def main() -> int:
     def frame_1m():
         holder[0] = R.plane_step(holder[0], p1m, spec)
 
+    def render_frame_1m():
+        holder[0], _ = R.plane_frame(holder[0], p1m, spec, RenderSpec(),
+                                     bounds_static=BOUNDS)
+
     for _ in range(5):
         frame_1m()
     sim = Simulation(SPHFluid.create(n=50_000))
     sim.update_params(gravity=400.0)
     sim.run(300)
+
+    def render_frame_50k():
+        sim.state, _ = sim.model.step_and_render(sim.state, sim.params)
+
     cases = {"1M uniform C=128": frame_1m,
-             "50k scene after frame 300": lambda: sim.run(1)}
+             "1M uniform C=128, step_and_render": render_frame_1m,
+             "50k scene after frame 300": lambda: sim.run(1),
+             "50k scene, step_and_render": render_frame_50k}
     for key, frame in cases.items():
         out[key] = timing(torch, frame, args.frames)
     for key, frame in cases.items():

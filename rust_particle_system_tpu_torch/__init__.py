@@ -8,7 +8,9 @@ layout mirrors the JAX package, so each module's counterpart has the same name:
     ops/       grid build; ops/cuda/ holds the wrappers of the CUDA kernels
                (csrc/*.cu), each beside its plain PyTorch version
     models/    the SPH fluid (plane-resident state)
+    render/    the general splat and the plane rasterizer of the fused frame
     runtime/   host-loop driver, validators, CLI
+    utils/     the PNG writer
     interop    state and params to and from the JAX checkpoint layout
 """
 

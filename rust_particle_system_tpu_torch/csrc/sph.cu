@@ -1,9 +1,11 @@
-// K2 (density walk) and K3 (fused pressure + viscosity walk with the frame
-// tail in its epilogue) over [gh, gw, C] cell planes.
+// K2 (density walk), K3 (fused pressure + viscosity walk with the frame
+// tail in its epilogue) and K3b (the same walk with the raw-sum epilogue)
+// over [gh, gw, C] cell planes.
 //
 // Replace rust_particle_system_tpu/ops/pallas/sph.py::_make_seg_kernel with
-// _density_update (via density_planes) and with _force_update +
-// _force_finalize_integrated (via force_planes_integrated).
+// _density_update (via density_planes), with _force_update +
+// _force_finalize_integrated (via force_planes_integrated) and with
+// _force_update + _force_finalize (via force_planes).
 //
 // What they compute, per own slot i, over the 3x3 neighbour cells j (self
 // included; sentinel-parked slots contribute exactly 0 and are skipped):
@@ -16,6 +18,10 @@
 //        restore, Euler, the abs-damped bounce and the dead-slot park
 //        (sph.py:366-419).  The epilogue runs for every slot, deferred ones
 //        included (their walk position is parked while npx is live).
+//   K3b  K3's walk and self term with the raw epilogue (sph.py:366-379):
+//        (fx, fy - self, Sx - vx S, Sy - vy S).  Slots whose walk position is
+//        parked get zero sums (and the self term); the caller's tail restores
+//        or parks them.  K3 and K3b are one template over the epilogue.
 //
 // Bound on the H100: arithmetic on the pair loop (one sqrt and one divide per
 // pair in K3), not memory: each block reads its 9 neighbour cells once.  The
@@ -109,7 +115,8 @@ __device__ __forceinline__ void bounce(float& x, float& v, float lo, float hi,
   x = fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void force_integrated_kernel(
+template <bool kTail>
+__global__ void force_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ P1, const float* __restrict__ NPn,
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -130,7 +137,6 @@ __global__ void force_integrated_kernel(
   const size_t o = (static_cast<size_t>(r) * gw + c) * C + s;
   const float ox = px[o], oy = py[o], oP1 = P1[o], oNPn = NPn[o];
   const float ovx = vx[o], ovy = vy[o], oNPo = NPo[o];
-  const float onpx = npx[o], onpy = npy[o];
   const float hh = k.h * k.h;
   const bool walk_live = ox < kLiveBelow;
 
@@ -160,6 +166,14 @@ __global__ void force_integrated_kernel(
   // Self pair (d = 0, fy fallback) removed in closed form; viscosity combine.
   fy -= (oP1 + oP1) * k.h + (oNPo + oNPn) * hh;
   const float fvx = Sx - ovx * S, fvy = Sy - ovy * S;
+  if constexpr (!kTail) {
+    out_px[o] = fx;
+    out_py[o] = fy;
+    out_vx[o] = fvx;
+    out_vy[o] = fvy;
+    return;
+  }
+  const float onpx = npx[o], onpy = npy[o];
   float nvx = ovx + fx * k.dt + fvx * k.vscale;
   float nvy = ovy + fy * k.dt + fvy * k.vscale;
   const bool live = onpx < kLiveBelow;
@@ -181,6 +195,22 @@ cudaError_t set_shmem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+template <bool kTail>
+cudaError_t launch_force(const float* px, const float* py, const float* P1,
+                         const float* NPn, const float* vx, const float* vy,
+                         const float* NPo, const float* npx, const float* npy,
+                         float* o0, float* o1, float* o2, float* o3, int gh, int gw,
+                         int C, ForceScalars k, void* stream) {
+  if (C < 1 || C > 1024) return cudaErrorInvalidValue;
+  const size_t shmem = 6 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
+  cudaError_t err = set_shmem(reinterpret_cast<const void*>(force_kernel<kTail>), shmem);
+  if (err != cudaSuccess) return err;
+  force_kernel<kTail><<<dim3(gw, gh), rps::block_threads(C), shmem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, o0, o1, o2, o3, gh, gw, C, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -209,15 +239,19 @@ extern "C" int rps_force_integrated(const float* px, const float* py, const floa
                                     float h, float eps2, float dt, float vscale,
                                     float x_min, float x_max, float y_min, float y_max,
                                     float damp, void* stream) {
-  if (C < 1 || C > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = 6 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
-  cudaError_t err =
-      set_shmem(reinterpret_cast<const void*>(force_integrated_kernel), shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
-  force_integrated_kernel<<<dim3(gw, gh), rps::block_threads(C), shmem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
-      C, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_force<true>(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                                             out_px, out_py, out_vx, out_vy, gh, gw,
+                                             C, k, stream));
+}
+
+// K3b: the same inputs without npx/npy.  Outputs: the raw fx, fy, fvx, fvy.
+extern "C" int rps_force(const float* px, const float* py, const float* P1,
+                         const float* NPn, const float* vx, const float* vy,
+                         const float* NPo, float* fx, float* fy, float* fvx, float* fvy,
+                         int gh, int gw, int C, float h, float eps2, void* stream) {
+  const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return static_cast<int>(launch_force<false>(px, py, P1, NPn, vx, vy, NPo, nullptr,
+                                              nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
+                                              stream));
 }

@@ -48,7 +48,7 @@ def params_to_numpy(params: SimParams) -> dict:
 def plane_state_from_numpy(arrays, device="cpu") -> PlaneState:
     """``state/<field>`` arrays -> the port's PlaneState on ``device``.  ``n`` is
     not stored by the JAX checkpoint; it is the live count plus ``lost``."""
-    planes = {k: torch.as_tensor(np.asarray(arrays[f"state/{k}"], np.float32),
+    planes = {k: torch.as_tensor(np.array(arrays[f"state/{k}"], np.float32),
                                  device=device).contiguous()
               for k in ("px", "py", "vx", "vy", "idsf")}
     lost = int(np.asarray(arrays["state/lost"]))

@@ -4,10 +4,8 @@ Counterpart of ``rust_particle_system_tpu/models/sph.py`` with
 ``backend="pallas"`` and its settle-safe default layout: aspect-1 cells the size
 of the smoothing radius, 128 slots per cell, one cell per slot row.  State is a
 :class:`~..ops.cuda.resident.PlaneState` carried across frames and re-binned
-each frame by the lossless rebin; nothing is ever sorted after init.
-
-Rendering is not ported yet (ROADMAP Queue 1 #7): ``render`` and
-``step_and_render`` raise.
+each frame by the lossless rebin; nothing is ever sorted after init.  Renders
+draw the planes through the plane rasterizer (K4) with no binning.
 """
 
 from __future__ import annotations
@@ -18,17 +16,19 @@ import torch
 
 from ..core.params import DEFAULT_BOUNDS, PARTICLE_COUNT, SimParams, make_params
 from ..core.state import scatter_init
-from ..ops.cuda.resident import PlaneState, plane_state_from_particles, plane_step
+from ..ops.cuda.resident import (PlaneState, plane_frame, plane_state_from_particles,
+                                 plane_step, render_plane_state)
 from ..ops.grid import GridSpec
+from ..render import RenderSpec, splat
+from ..render.splat_planes import MARGIN, planes_compatible
 
 DEFAULT_CAPACITY = 128
-_RENDER_TODO = ("rendering is not ported yet (ROADMAP Queue 1 #7: the "
-                "row-strip rasterizer K4 and plane_frame)")
 
 
 @dataclasses.dataclass(frozen=True)
 class SPHFluid:
     grid: GridSpec
+    render_spec: RenderSpec
     bounds: tuple
     device: torch.device
     n: int = PARTICLE_COUNT
@@ -36,7 +36,7 @@ class SPHFluid:
     @classmethod
     def create(cls, n: int = PARTICLE_COUNT, bounds=DEFAULT_BOUNDS,
                cell_size: float | None = None, capacity: int | None = None,
-               device="cuda") -> "SPHFluid":
+               device="cuda", render_spec: RenderSpec | None = None) -> "SPHFluid":
         """``capacity=None`` takes the settle-safe 128 slots per cell (a settled
         pool runs ~101 particles per cell under the default parameters).  The
         default device is the card; there is no silent CPU fallback."""
@@ -51,8 +51,8 @@ class SPHFluid:
             cell_size = params.smoothing_radius
         cap = DEFAULT_CAPACITY if capacity is None else int(capacity)
         grid = GridSpec.from_bounds(bounds, cell_size, cap)
-        return cls(grid=grid, bounds=tuple(float(b) for b in bounds),
-                   device=device, n=int(n))
+        return cls(grid=grid, render_spec=render_spec or RenderSpec(),
+                   bounds=tuple(float(b) for b in bounds), device=device, n=int(n))
 
     def default_params(self) -> SimParams:
         return make_params(bounds=self.bounds)
@@ -68,8 +68,25 @@ class SPHFluid:
     def step(self, state: PlaneState, params: SimParams) -> PlaneState:
         return plane_step(state, params, self.grid)
 
-    def render(self, state, params, camera=None):
-        raise NotImplementedError(_RENDER_TODO)
+    def render(self, state: PlaneState, params: SimParams, camera=None):
+        """The [H, W, 4] image of ``state``; ``camera`` is a (cx, cy, zoom)
+        pan/zoom triple.
 
-    def step_and_render(self, state, params):
-        raise NotImplementedError(_RENDER_TODO)
+        The identity camera on a geometry that meets the plane rasterizer's
+        preconditions renders the planes directly (K4, no binning).  Any
+        other camera or geometry takes the general splat of the id-ordered
+        particles, on the state's own device, as the JAX model routes it."""
+        if camera is None:
+            margin = min(MARGIN, self.render_spec.max_radius_px)
+            if planes_compatible(self.grid, self.render_spec, self.bounds, margin):
+                return render_plane_state(state, params, self.grid, self.render_spec,
+                                          bounds_static=self.bounds)
+        ps = state.to_particle_state(params)
+        return splat(ps.pos, ps.color, params.particle_size, params.bounds,
+                     self.render_spec, camera=camera)
+
+    def step_and_render(self, state: PlaneState, params: SimParams):
+        """Fused frame: physics, then the image of the end planes.  Returns
+        (state, image)."""
+        return plane_frame(state, params, self.grid, self.render_spec,
+                           bounds_static=self.bounds)

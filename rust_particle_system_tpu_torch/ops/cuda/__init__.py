@@ -6,5 +6,7 @@ version beside it for CPU tensors; each counts its launches in ``.launches``.
     K1  rebin.rebin_planes                  csrc/rebin.cu
     K2  sph.density_planes                  csrc/sph.cu
     K3  sph.force_planes_integrated         csrc/sph.cu
+    K3b sph.force_planes                    csrc/sph.cu
+    K4  render.splat_planes.raster_planes   csrc/splat_planes.cu (also K10)
     K5  plane_build.cell_planes_aos         csrc/plane_build.cu
 """

@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "rps_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,8 @@ SIGNATURES = {
     "rps_rebin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "rps_density": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "rps_force_integrated": [_P] * 13 + [_I, _I, _I] + [_F] * 9 + [_P],
+    "rps_force": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
+    "rps_splat_planes": [_P] * 6 + [_I] * 10 + [_F] * 3 + [_P],
 }
 
 _lib = None
@@ -70,20 +72,32 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is already built."""
+    """Compile csrc/*.cu into the shared library unless it is already built:
+    one nvcc per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent reader never sees a torn library
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):  # wait for every compile, failed or not
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        lib = str(Path(tmp) / "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(lib, so)  # atomic: a concurrent reader never sees a torn library
     return so
 
 

@@ -4,7 +4,10 @@ Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
 single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
 K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
 the lossless rebin K1, the defer mask, the density walk K2, the pressure terms,
-the fused force walk K3 with the frame tail) and ``to_particle_state``.
+the fused force walk K3 with the frame tail, or with ``fuse_tail=False`` the
+raw walk K3b and the tail in torch), ``plane_frame`` (a frame plus its image
+through the plane rasterizer K4), ``render_plane_state`` and
+``to_particle_state``.
 
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
@@ -20,10 +23,11 @@ import torch
 from ...core import kernels as K
 from ...core.params import SimParams, f32_mul
 from ...core.state import ParticleState
+from ...render.splat_planes import drifted_patch_margin, splat_from_planes
 from ..grid import GridSpec, build_grid, cell_index
 from .plane_build import cell_planes_aos
 from .rebin import SENTINEL, rebin_planes
-from .sph_step import _forces_from_cells
+from .sph_step import _forces_from_cells, _velocities_from_cells
 
 MAX_IDS = 1 << 24  # ids ride an f32 channel: exact up to 2^24
 MAX_SPILL = 4096  # overflow rows the init spill places (as JAX's max_spill)
@@ -175,9 +179,30 @@ def walk_positions(npx, npy, spec: GridSpec):
     return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
 
 
-def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec) -> PlaneState:
+def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
+    """The torch frame tail of ``fuse_tail=False`` (JAX resident.py:291-322):
+    deferred slots keep their post-gravity velocity, integrate from the
+    predicted position, bounce, re-park dead slots."""
+    dt = params.dt
+    live2 = npx < 0.5 * SENTINEL
+    defer = (fpx >= 0.5 * SENTINEL) & live2
+    nvx = torch.where(defer, nvx0, nvx)
+    nvy = torch.where(defer, nvy0, nvy)
+    x_min, x_max, y_min, y_max = params.bounds
+    x2, nvx = K.bounce_axis(npx + (nvx - nvx0) * dt, nvx, x_min, x_max,
+                            params.damping_factor)
+    y2, nvy = K.bounce_axis(npy + (nvy - nvy0) * dt, nvy, y_min, y_max,
+                            params.damping_factor)
+    return (torch.where(live2, x2, SENTINEL), torch.where(live2, y2, SENTINEL),
+            torch.where(live2, nvx, 0.0), torch.where(live2, nvy, 0.0))
+
+
+def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
+                  fuse_tail: bool = True) -> PlaneState:
     """One live physics frame: gravity + predict, rebin (K1), defer mask, density
-    walk (K2), pressure terms, fused force walk with the frame tail (K3).
+    walk (K2), pressure terms, then the fused force walk with the frame tail
+    (K3), or with ``fuse_tail=False`` the raw force walk (K3b) and the tail in
+    torch (the same math in another order of rounding).
 
     The rebin is LOSSLESS: movers that find no free slot, and >1-cell/frame
     movers in transit, stay in their slot and are DEFERRED — parked out of the
@@ -187,15 +212,65 @@ def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec) -> PlaneSta
         predict_planes(ps, params), spec)
     kept = counts.clamp_max(spec.capacity).sum(dtype=torch.int32)
     fpx, fpy = walk_positions(npx, npy, spec)
-    px2, py2, vx2, vy2 = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec,
-                                            params)
+    if fuse_tail:
+        px2, py2, vx2, vy2 = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy,
+                                                spec, params)
+    else:
+        nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params)
+        px2, py2, vx2, vy2 = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy,
+                                           params)
     live2 = npx < 0.5 * SENTINEL
     return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2,
                       idsf=torch.where(live2, nidsf, 0.0), frame=ps.frame,
                       lost=ps.lost + (live_before - kept), n=ps.n)
 
 
-def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec) -> PlaneState:
+def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
+               fuse_tail: bool = True) -> PlaneState:
     """Warm-up-honouring full frame: physics once ``frame >= shader_delay``."""
-    stepped = plane_physics(ps, params, spec) if ps.frame >= params.shader_delay else ps
+    if ps.frame >= params.shader_delay:
+        stepped = plane_physics(ps, params, spec, fuse_tail)
+    else:
+        stepped = ps
     return dataclasses.replace(stepped, frame=ps.frame + 1)
+
+
+def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
+                bounds_static: tuple, patch_margin: int | None = None,
+                fuse_tail: bool = True):
+    """Fused step + render: the frame, then its image straight from the end
+    planes through the plane rasterizer (K4), with no binning.  Returns
+    (state, [H, W, 4] image).
+
+    The patch is the tight one (sprite radius + 1 px of drift slack) with
+    centre clamping, so a sprite that drifted further renders displaced
+    instead of clipped; ``patch_margin`` asks for a wider patch.  Colours are
+    the energy ramp (sum rule 1), in warm-up too, as in JAX."""
+    new = plane_step(ps, params, spec, fuse_tail)
+    image = splat_from_planes(
+        new.px, new.py, new.vx, new.vy, new.live, params.particle_size,
+        params.max_energy, bounds_static=bounds_static, grid_spec=spec,
+        render_spec=render_spec,
+        margin=drifted_patch_margin(spec, render_spec, bounds_static, patch_margin),
+        clamp_drift=True, color_sum=1.0)
+    return new, image
+
+
+def render_plane_state(ps: PlaneState, params: SimParams, spec: GridSpec,
+                       render_spec, bounds_static: tuple):
+    """Standalone render of plane-resident state, with no binning: the same
+    patch and clamping as the fused frame.  Warm-up states draw white (sum
+    rule 3), later ones the energy ramp (sum rule 1); the choice is made from
+    the host-side frame counter, so nothing is read back."""
+    live = ps.live
+    if ps.frame > params.shader_delay:
+        rgb = K.energy_color(torch.stack([ps.vx, ps.vy], dim=-1), params.max_energy)
+        colors, color_sum = (rgb[..., 0], rgb[..., 1], rgb[..., 2]), 1.0
+    else:
+        white = torch.ones_like(ps.px)
+        colors, color_sum = (white, white, white), 3.0
+    return splat_from_planes(
+        ps.px, ps.py, ps.vx, ps.vy, live, params.particle_size, params.max_energy,
+        bounds_static=bounds_static, grid_spec=spec, render_spec=render_spec,
+        margin=drifted_patch_margin(spec, render_spec, bounds_static),
+        clamp_drift=True, colors=colors, color_sum=color_sum)

@@ -12,6 +12,9 @@ one-cell-per-slot-row layout:
   ``_force_update`` + ``_force_finalize_integrated``: the fused pressure,
   near-pressure and viscosity walk with the frame tail (velocity combine,
   deferred restore, Euler, bounce, park) in its epilogue.
+* :func:`force_planes` — kernel K3b, replacing ``_make_seg_kernel`` +
+  ``_force_update`` + ``_force_finalize``: the same walk with the raw-sum
+  epilogue (fx, fy, fvx, fvy), for the unfused tail (``fuse_tail=False``).
 
 Conventions (as in JAX): dead slots and deferred slots carry position
 SENTINEL in the walk planes, so every pair with them weighs exactly 0.  Both
@@ -155,14 +158,23 @@ def force_scalars(params: SimParams) -> tuple:
             params.damping_factor)
 
 
-def tail_plain(fx, fy, S, Sx, Sy, own, scal):
-    """The integrated epilogue (self term, velocity combine, deferred restore,
-    Euler, bounce, park) on per-slot tensors; ``own`` = (px, py, P1, NPn, vx, vy,
-    NPo, npx, npy) walk/own values."""
-    h, _, dt, vscale, x_min, x_max, y_min, y_max, damp = scal
-    ox, _, oP1, oNPn, ovx, ovy, oNPo, onpx, onpy = own
+def finalize_plain(accs, own, scal):
+    """The raw epilogue (sph.py::_force_finalize): subtract the closed-form
+    self term, combine the viscosity sums.  Returns (fx, fy, fvx, fvy)."""
+    fx, fy, S, Sx, Sy = accs
+    h = scal[0]
+    _, _, oP1, oNPn, ovx, ovy, oNPo = own[:7]
     fy = fy - ((oP1 + oP1) * h + (oNPo + oNPn) * (h * h))
-    fvx, fvy = Sx - ovx * S, Sy - ovy * S
+    return fx, fy, Sx - ovx * S, Sy - ovy * S
+
+
+def tail_plain(accs, own, scal):
+    """The integrated epilogue (raw epilogue, velocity combine, deferred
+    restore, Euler, bounce, park) on per-slot tensors; ``own`` = (px, py, P1,
+    NPn, vx, vy, NPo, npx, npy) walk/own values."""
+    _, _, dt, vscale, x_min, x_max, y_min, y_max, damp = scal
+    ox, ovx, ovy, onpx, onpy = own[0], own[4], own[5], own[7], own[8]
+    fx, fy, fvx, fvy = finalize_plain(accs, own, scal)
     nvx = ovx + fx * dt + fvx * vscale
     nvy = ovy + fy * dt + fvy * vscale
     live = _live(onpx)
@@ -175,16 +187,18 @@ def tail_plain(fx, fy, S, Sx, Sy, own, scal):
             torch.where(live, nvx, 0.0), torch.where(live, nvy, 0.0))
 
 
-def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                                  scal: tuple):
-    """Plain PyTorch version of K3."""
+def _force_walk_plain(planes, scal: tuple, epilogue):
+    """Plain PyTorch version of the K3/K3b walk: the five pair sums over the
+    dense 3x3 window in row chunks, then ``epilogue(accs, own, scal)`` per
+    chunk.  ``planes`` = (px, py, P1, NPn, vx, vy, NPo, *own-only extras)."""
+    px, py, P1, NPn, vx, vy = planes[:6]
     h, eps2 = scal[0], scal[1]
     gh, gw, C = px.shape
     outs = [torch.empty_like(px) for _ in range(4)]
     step = _chunk_rows(gw, C)
     for r0 in range(0, gh, step):
         r1 = min(gh, r0 + step)
-        own = [t[r0:r1] for t in (px, py, P1, NPn, vx, vy, NPo, npx, npy)]
+        own = [t[r0:r1] for t in planes]
         accs = [torch.zeros_like(own[0]) for _ in range(5)]
         c = _live_slot_bound(px, r0, r1)
         if c:
@@ -209,9 +223,21 @@ def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
                     n(nvx) * u3, n(nvy) * u3)
             for a, t in zip(accs, sums):
                 a[..., :c] = torch.where(walk_live, t.sum(-2).sum(-1), 0.0)
-        for o, t in zip(outs, tail_plain(*accs, own, scal)):
+        for o, t in zip(outs, epilogue(accs, own, scal)):
             o[r0:r1] = t
     return tuple(outs)
+
+
+def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                                  scal: tuple):
+    """Plain PyTorch version of K3."""
+    return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo, npx, npy), scal,
+                             tail_plain)
+
+
+def force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal: tuple):
+    """Plain PyTorch version of K3b."""
+    return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo), scal, finalize_plain)
 
 
 def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
@@ -240,3 +266,26 @@ def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
 
 
 force_planes_integrated.launches = 0
+
+
+def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
+    """The pressure + viscosity walk with the raw-sum epilogue: (fx, fy, fvx,
+    fvy) planes, fvx/fvy unscaled (the caller applies the viscosity scale).
+    Same inputs as :func:`force_planes_integrated` without ``npx, npy``.
+    Launches K3b for CUDA tensors; runs the plain version for CPU tensors."""
+    scal = force_scalars(params)
+    if _lib.dispatch(px) == "plain":
+        return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal)
+    ins = (px, py, P1, NPn, vx, vy, NPo)
+    _lib.require_cuda_planes(*ins)
+    gh, gw, C = px.shape
+    outs = [torch.empty_like(px) for _ in range(4)]
+    lib = _lib.library()
+    _lib.check("rps_force", lib.rps_force(
+        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
+        gh, gw, C, scal[0], scal[1], _lib.stream()))
+    force_planes.launches += 1
+    return tuple(outs)
+
+
+force_planes.launches = 0

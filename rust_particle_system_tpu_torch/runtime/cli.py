@@ -4,12 +4,13 @@ Counterpart of ``rust_particle_system_tpu/runtime/cli.py`` for the ported main
 path:
 
     python -m rust_particle_system_tpu_torch.runtime.cli --n 50000 --frames 300 \\
-        --set gravity=400 --stats
+        --set gravity=400 --render out.png --stats
     python -m rust_particle_system_tpu_torch.runtime.cli --device cpu --n 2000 \\
-        --frames 20 --resume jax_checkpoint.npz
+        --frames 20 --resume jax_checkpoint.npz --save state.npz
 
 ``--resume`` loads a PlaneState checkpoint written by the JAX package's
-``runtime/checkpoint.save`` (see ``interop.py``).
+``runtime/checkpoint.save`` (see ``interop.py``); ``--save`` writes one that it
+reads back.  ``--render`` writes the final frame as an sRGB PNG.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ import torch
 
 from .. import interop
 from ..models.sph import SPHFluid
+from ..render import to_srgb_u8
+from ..utils.png import write_png
 from .simulation import Simulation
 
 NOT_PORTED = {
-    "render": "ROADMAP Queue 1 #7 (the row-strip rasterizer)",
-    "video": "ROADMAP Queue 1 #7 (the row-strip rasterizer)",
-    "save": "ROADMAP Queue 1 #8 (checkpoint writing from the CLI)",
+    "video": "ROADMAP Queue 1 #13 (the video writer needs PIL or ffmpeg)",
 }
 
 
@@ -44,6 +45,9 @@ def main(argv=None) -> int:
                     help="validate invariants and print state statistics at the end")
     ap.add_argument("--resume", default=None,
                     help="load a PlaneState checkpoint (.npz, JAX layout) first")
+    ap.add_argument("--save", default=None,
+                    help="write the final PlaneState checkpoint (.npz, JAX layout) here")
+    ap.add_argument("--render", default=None, help="write the final frame (PNG) here")
     for flag in NOT_PORTED:
         ap.add_argument(f"--{flag}", default=None, help="not yet ported")
     args = ap.parse_args(argv)
@@ -85,6 +89,12 @@ def main(argv=None) -> int:
           f"{elapsed:.2f}s ({rate:,.0f} particle-steps/s, incl. kernel build)")
     if args.stats:
         print(sim.stats())
+    if args.save:
+        interop.save_npz(args.save, sim.state, sim.params)
+        print(f"checkpoint -> {args.save}")
+    if args.render:
+        write_png(args.render, to_srgb_u8(sim.render()).cpu().numpy())
+        print(f"frame -> {args.render}")
     return 0
 
 

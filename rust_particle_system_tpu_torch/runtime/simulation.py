@@ -80,6 +80,9 @@ class Simulation:
         return self.state
 
     def render(self, camera=None):
+        """The [H, W, 4] image of the current state; ``camera`` is an optional
+        (cx, cy, zoom) pan/zoom triple (the per-frame view_proj analog,
+        src/particle_buffers.rs:220-236)."""
         return self.model.render(self.state, self.params, camera=camera)
 
     def particle_state(self):

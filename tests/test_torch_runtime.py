@@ -2,8 +2,10 @@
 CPU: the model's device contract, the Simulation guards, the CLI, and that the
 package never imports jax."""
 
+import struct
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -13,12 +15,15 @@ import torch
 
 from rust_particle_system_tpu.core import kernels as jkernels
 from rust_particle_system_tpu.core import params as jparams
+from rust_particle_system_tpu.ops.pallas.resident import PlaneState as JPlaneState
+from rust_particle_system_tpu.runtime import checkpoint as jcheckpoint
 from rust_particle_system_tpu_torch import interop
 from rust_particle_system_tpu_torch.core import kernels, params
 from rust_particle_system_tpu_torch.core.params import kernel_norms
 from rust_particle_system_tpu_torch.models.sph import SPHFluid
 from rust_particle_system_tpu_torch.ops.cuda import rebin
 from rust_particle_system_tpu_torch.ops.grid import GridSpec
+from rust_particle_system_tpu_torch.render import to_srgb_u8
 from rust_particle_system_tpu_torch.runtime import cli
 from rust_particle_system_tpu_torch.runtime.simulation import Simulation
 
@@ -65,14 +70,6 @@ def test_create_defaults_to_the_card_and_fails_loudly_without_it():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             SPHFluid.create()
-
-
-def test_render_is_not_ported_yet():
-    sim = _sim()
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        sim.render()
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        sim.model.step_and_render(sim.state, sim.params)
 
 
 def test_update_params_guards():
@@ -125,10 +122,68 @@ def test_cli_runs_on_cpu_and_resumes(tmp_path, capsys):
     assert "resumed from" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--render", "--video", "--save"])
+@pytest.mark.parametrize("flag", ["--video"])
 def test_cli_unported_outputs_exit_nonzero(flag, capsys):
     assert cli.main(["--device", "cpu", "--n", "10", "--frames", "1", flag, "x"]) != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+def _read_png(path):
+    """[H, W, 4] uint8 of an RGBA8 PNG written with filter 0 on every row."""
+    data = Path(path).read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        tag = data[pos + 4: pos + 8]
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, ctype) == (8, 6)
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 4 * w)
+    assert np.all(rows[:, 0] == 0)
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+@pytest.mark.parametrize("frames", [3, 8])
+def test_cli_render_writes_the_final_frame(tmp_path, capsys, frames):
+    """--render writes to_srgb_u8(sim.render()) of the final state: white in
+    warm-up (3 frames), the energy ramp after (8)."""
+    path = tmp_path / "frame.png"
+    assert cli.main(["--device", "cpu", "--n", "300", "--frames", str(frames),
+                     "--set", "gravity=400", "--render", str(path)]) == 0
+    assert f"frame -> {path}" in capsys.readouterr().out
+    got = _read_png(path)
+    sim = Simulation(SPHFluid.create(n=300, device="cpu"), seed=0)
+    sim.update_params(gravity=400.0)
+    sim.run(frames)
+    want = to_srgb_u8(sim.render()).numpy()
+    assert got.shape == want.shape == (1080, 1920, 4)
+    np.testing.assert_array_equal(got, want)
+    lit = got[..., :3].max(-1) > 128
+    assert lit.sum() > 300
+    grey = np.all(got[..., 0] == got[..., 2])
+    assert grey == (frames <= sim.params.shader_delay)
+
+
+def test_cli_save_loads_in_jax(tmp_path):
+    """--save writes the JAX checkpoint layout: the JAX checkpoint.load reads
+    the state and params back."""
+    path = str(tmp_path / "state.npz")
+    assert cli.main(["--device", "cpu", "--n", "200", "--frames", "7", "--set",
+                     "gravity=250", "--save", path]) == 0
+    sim = Simulation(SPHFluid.create(n=200, device="cpu"), seed=0)
+    sim.update_params(gravity=250.0)
+    sim.run(7)
+    shape = tuple(sim.state.px.shape)
+    like = JPlaneState(*(jnp.zeros(shape, jnp.float32) for _ in range(5)),
+                       frame=jnp.int32(0), lost=jnp.int32(0), n=200)
+    jstate, jp = jcheckpoint.load(path, like, jparams.make_params())
+    assert int(jstate.frame) == 7 and int(jstate.lost) == 0
+    for f in ("px", "py", "vx", "vy", "idsf"):
+        np.testing.assert_array_equal(np.asarray(getattr(jstate, f)),
+                                      getattr(sim.state, f).numpy())
+    assert float(jp.gravity) == 250.0 and tuple(np.asarray(jp.bounds)) == sim.params.bounds
 
 
 def test_package_imports_no_jax():
