@@ -15,8 +15,13 @@ Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
      C=64 on a small grid); K2, K3 and K3b at the stated tolerances; the
      unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
      the 1080p image of the stepped state (sum rule, given colours, radius 2)
-     and at a geometry the JAX package sends to its v1 rasterizer (K10); then
-     the whole step against the plain path (CPU) on a small input;
+     and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
+     three walks on a 1M uniform pair-packed state (C=64, the JAX package's
+     headline configuration, bench.py:387-389) with forced deferrals, at C=32
+     and on an odd-width grid, and against K2/K3 on the same C=64 planes; K8
+     at n = 16,384 and 1000, coincident particles included; then the whole
+     step, and the N-body, flow and attractor steps, against the plain path
+     (CPU) on small inputs;
   3  the user entry points, each path with the launch counts set to 0 just
      before it and read just after:
      scene  Simulation(SPHFluid.create(n=50_000)), gravity=400, 300 frames;
@@ -29,11 +34,21 @@ Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
      unfused  plane_frame(fuse_tail=False) frames (K3b);
      v1     a model whose render geometry JAX sends to its v1 rasterizer
             (K10), step_and_render frames;
-  4  1M particles, uniform, C=128: the step, the render alone and
-     step_and_render, 40 frames each, timed with CUDA events.
+     pack2  Simulation(SPHFluid.create(n=200_000, capacity=64, pack2=True)),
+            gravity 300, frames and step_and_render frames: lost == 0, live
+            count exact, K6 launched and K2/K3 not;
+     pack2_unfused  plane_frame(fuse_tail=False) on that model (K6's raw walk);
+     nbody, flow, attractor  runtime.cli.main(--model ... --render
+            build/chip_smoke_<model>.png --stats); nbody launches K8;
+  4  ms per frame, CUDA events: 1M uniform C=128 (the step, the render alone,
+     step_and_render); 1M uniform pair-packed C=64 against classic C=64; the
+     N-body at 16,384, the flow field at 1M, the attractor at 65,536.
 
-Any failure raises and the exit code is nonzero.  The line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+Each kernel's line holds its time beside its bound: the larger of the bytes it
+must move over the H100's HBM rate and the operations this run's data needs
+over its FP32 rate.  Any failure raises and the exit code is nonzero.  The line
+before the last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -49,6 +64,46 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 BOUNDS = (-960.0, 960.0, -540.0, 540.0)
 N_1M = 1_000_000
+N_NBODY = 16_384  # BASELINE.json config 3
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# Operations per evaluation, counted from the kernels' inner loops (a sqrt,
+# divide or rsqrt counts as one, an FMA as two): a density pair and a force
+# pair (csrc/sph.cu), an N-body pair (csrc/nbody.cu), and a (slot, pixel) of
+# the rasterizer with nch accumulators (csrc/splat_planes.cu).
+OPS_DENSITY_PAIR = 12
+OPS_FORCE_PAIR = 32
+OPS_NBODY_PAIR = 20
+
+
+def ops_raster(nch: int) -> int:
+    return 15 + 2 * nch
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(ms, what bounds it): the least time the card could take, the larger of
+    the bytes over the HBM rate and the operations over the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def window_pairs(walk_px) -> int:
+    """Live (own, neighbour) slot pairs over the 3x3 cell windows of walk
+    position planes: the pair work a walk needs on them."""
+    import torch.nn.functional as F
+
+    n = (walk_px < 5e5).sum(-1).double()
+    gh, gw = n.shape
+    p = F.pad(n, (1, 1, 1, 1))
+    w = sum(p[dy: dy + gh, dx: dx + gw] for dy in range(3) for dx in range(3))
+    return int((n * w).sum())
 
 
 def gpu_line() -> str:
@@ -173,14 +228,18 @@ def main() -> int:
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
         rebin_planes, rebin_planes_plain)
+    from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
+    from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
+    from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
-        density_planes, density_planes_plain, force_planes, force_planes_integrated,
+        density_pairs, density_planes, density_planes_plain, density_scalars,
+        force_pairs, force_pairs_integrated, force_planes, force_planes_integrated,
         force_planes_integrated_plain, force_planes_plain, force_scalars,
         pressure_terms)
     from rust_particle_system_tpu_torch.ops.grid import GridSpec, build_grid
     from rust_particle_system_tpu_torch.render import RenderSpec, to_srgb_u8
     from rust_particle_system_tpu_torch.render.splat_planes import (
-        drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
+        FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
     from rust_particle_system_tpu_torch.runtime import cli
     from rust_particle_system_tpu_torch.runtime.simulation import Simulation
 
@@ -211,10 +270,15 @@ def main() -> int:
     params = make_params(bounds=BOUNDS, gravity=400.0)
     rows = {}
 
-    def record(key, name, source, replaces, err, ms, plain_ms):
+    def record(key, name, source, replaces, err, ms, plain_ms, moved, ops):
+        """One kernel's line; ``moved`` bytes and ``ops`` operations set its
+        bound.  No single PyTorch call computes any of these functions, so
+        library_ms is null."""
+        bound_ms, bound_by = bound(moved, ops)
         rows[key] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms}
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
 
     # K5 on the 1M uniform binning.
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -234,7 +298,8 @@ def main() -> int:
     record("K5", "K5 plane build", "rust_particle_system_tpu_torch/csrc/plane_build.cu",
            "rust_particle_system_tpu/ops/pallas/plane_build.py:44", max_abs(a, b),
            cuda_ms(lambda: cell_planes_aos(*args5), 20),
-           cuda_ms(lambda: cell_planes_aos_plain(*args5), 5))
+           cuda_ms(lambda: cell_planes_aos_plain(*args5), 5),
+           nbytes(packed, grid.starts, a), 0)
     print(f"phase 2: K5 bit-equal at {spec.num_cells} cells x {spec.capacity} slots")
 
     # A 1M state after a few live frames (kernels), then each kernel's inputs.
@@ -271,85 +336,108 @@ def main() -> int:
     record("K1", "K1 rebin", "rust_particle_system_tpu_torch/csrc/rebin.cu",
            "rust_particle_system_tpu/ops/pallas/rebin.py:442", k1_err,
            cuda_ms(lambda: rebin_planes(rin, spec), 20),
-           cuda_ms(lambda: rebin_planes_plain(rin, spec), 5))
+           cuda_ms(lambda: rebin_planes_plain(rin, spec), 5),
+           nbytes(*rin, *a, ca), 0)
     print("phase 2: K1 bit-equal (1M stepped, air rows, C=16 and C=64 x drift 0.4/0.9/1.8)")
 
     npx, npy, nvx0, nvy0, _ = a
-    fpx, fpy = R.walk_positions(npx, npy, spec)
-    walk_live = fpx < 5e5
-    rho, rhon = density_planes(fpx, fpy, params)
-    h, dn, nn = (params.smoothing_radius, params.density_kernel_norm,
-                 params.near_density_kernel_norm)
-    prho, prhon = density_planes_plain(fpx, fpy, h, dn, nn)
-    require(close(rho, prho, 1e-5, 0.0, walk_live) and close(rhon, prhon, 1e-5, 0.0, walk_live),
-            "K2 density differs from its plain version beyond rtol 1e-5")
-    require(bool(torch.all(rho[~walk_live] == 0)), "K2 wrote nonzero parked slots")
-    record("K2", "K2 density walk", "rust_particle_system_tpu_torch/csrc/sph.cu",
-           "rust_particle_system_tpu/ops/pallas/sph.py:137",
-           max(max_abs(rho, prho, walk_live), max_abs(rhon, prhon, walk_live)),
-           cuda_ms(lambda: density_planes(fpx, fpy, params), 20),
-           cuda_ms(lambda: density_planes_plain(fpx, fpy, h, dn, nn), 2))
-    print(f"phase 2: K2 within rtol 1e-5 on {int(walk_live.sum())} walk slots")
 
-    def k3_inputs(qx, qy):
-        """K3's inputs for true positions (qx, qy) resident in their slots."""
-        wx, wy = R.walk_positions(qx, qy, spec)
-        P1, NPo, NPn = pressure_terms(*density_planes(wx, wy, params), params)
-        return (wx, wy, P1, NPn, nvx0, nvy0, NPo, qx, qy)
+    # The walks' checks, shared by K2/K3/K3b and K6 (``pair``).  Bars: density
+    # rtol 1e-5 on walk-live slots and 0 at parked ones; the fused walk's
+    # positions rtol/atol 1e-4 and velocities rtol 1e-4 / atol 1e-2, dead and
+    # deferred slots bit-equal; the raw walk through the velocity update it
+    # feeds at the velocity bars, parked walk slots bit-equal.
+    def check_density(label, kernel, wx, wy, prm, pair=False):
+        ko = kernel(wx, wy, prm)
+        po = density_planes_plain(wx, wy, *density_scalars(prm), pair=pair)
+        wl = wx < 5e5
+        require(all(close(k, q, 1e-5, 0.0, wl) for k, q in zip(ko, po)),
+                f"{label} density differs from its plain version beyond rtol 1e-5")
+        require(bool(torch.all(ko[0][~wl] == 0)), f"{label} wrote nonzero parked slots")
+        return ko, max(max_abs(k, q, wl) for k, q in zip(ko, po))
 
-    def check_k3(fargs) -> tuple[float, int]:
-        ko = force_planes_integrated(*fargs, params)
-        po = force_planes_integrated_plain(*fargs, force_scalars(params))
+    def fused_inputs(density, qx, qy, qvx, qvy, sp, prm):
+        """The fused walk's inputs for true positions (qx, qy) resident in
+        their slots of grid ``sp``."""
+        wx, wy = R.walk_positions(qx, qy, sp)
+        P1, NPo, NPn = pressure_terms(*density(wx, wy, prm), prm)
+        return (wx, wy, P1, NPn, qvx, qvy, NPo, qx, qy)
+
+    def check_fused(label, kernel, fargs, prm, pair=False):
+        ko = kernel(*fargs, prm)
+        po = force_planes_integrated_plain(*fargs, force_scalars(prm), pair=pair)
         live = fargs[7] < 5e5
         require(close(ko[0], po[0], 1e-4, 1e-4, live)
                 and close(ko[1], po[1], 1e-4, 1e-4, live),
-                "K3 positions differ from the plain version beyond rtol/atol 1e-4")
+                f"{label} positions differ from the plain version beyond rtol/atol 1e-4")
         require(close(ko[2], po[2], 1e-4, 1e-2, live)
                 and close(ko[3], po[3], 1e-4, 1e-2, live),
-                "K3 velocities differ from the plain version beyond rtol 1e-4 / atol 1e-2")
+                f"{label} velocities differ from the plain version beyond rtol 1e-4 / "
+                "atol 1e-2")
         require(all(torch.equal(x[~live], y[~live]) for x, y in zip(ko, po)),
-                "K3 dead slots not parked identically")
+                f"{label} dead slots not parked identically")
         deferred = live & ~(fargs[0] < 5e5)
         require(all(torch.equal(x[deferred], y[deferred]) for x, y in zip(ko, po)),
-                "K3 deferred slots differ from the plain version")
+                f"{label} deferred slots differ from the plain version")
         return max(max_abs(x, y, live) for x, y in zip(ko, po)), int(deferred.sum())
 
-    fargs = k3_inputs(npx, npy)
-    k3_err, _ = check_k3(fargs)
-    # Forced deferrals: 5% of live slots keyed two cells to the right of their
-    # resident cell (the epilogue must restore and integrate them).
-    gsel = torch.Generator(device="cuda").manual_seed(5)
-    pick = (npx < 5e5) & (torch.rand(npx.shape, generator=gsel, device="cuda") < 0.05)
-    far_x = torch.where(pick, (npx + 2 * spec.cell_width).clamp(max=BOUNDS[1]), npx)
-    k3_err_d, n_def = check_k3(k3_inputs(far_x, npy))
+    def check_raw(label, kernel, fargs, prm, pair=False):
+        scal = force_scalars(prm)
+        kraw = kernel(*fargs[:7], prm)
+        praw = force_planes_plain(*fargs[:7], scal, pair=pair)
+        wl = fargs[0] < 5e5
+        err = 0.0
+        for v, fi, fvi in ((fargs[4], 0, 2), (fargs[5], 1, 3)):
+            kv = v + kraw[fi] * scal[2] + kraw[fvi] * scal[3]
+            pv = v + praw[fi] * scal[2] + praw[fvi] * scal[3]
+            require(close(kv, pv, 1e-4, 1e-2, wl),
+                    f"{label} velocity update differs from the plain version beyond "
+                    "rtol 1e-4 / atol 1e-2")
+            err = max(err, max_abs(kv, pv, wl))
+        require(all(torch.equal(x[~wl], y[~wl]) for x, y in zip(kraw, praw)),
+                f"{label} parked walk slots differ from the plain version")
+        return err
+
+    def forced_deferrals(qx, sp, seed):
+        """5% of live slots keyed two cells to the right of their resident
+        cell: the epilogue must restore and integrate them."""
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        pick = (qx < 5e5) & (torch.rand(qx.shape, generator=g, device="cuda") < 0.05)
+        return torch.where(pick, (qx + 2 * sp.cell_width).clamp(max=BOUNDS[1]), qx)
+
+    fpx, fpy = R.walk_positions(npx, npy, spec)
+    (rho, rhon), k2_err = check_density("K2", density_planes, fpx, fpy, params)
+    pairs_1m = window_pairs(fpx)
+    record("K2", "K2 density walk", "rust_particle_system_tpu_torch/csrc/sph.cu",
+           "rust_particle_system_tpu/ops/pallas/sph.py:137", k2_err,
+           cuda_ms(lambda: density_planes(fpx, fpy, params), 20),
+           cuda_ms(lambda: density_planes_plain(fpx, fpy, *density_scalars(params)), 2),
+           nbytes(fpx, fpy, rho, rhon), pairs_1m * OPS_DENSITY_PAIR)
+    print(f"phase 2: K2 within rtol 1e-5 on {int((fpx < 5e5).sum())} walk slots")
+
+    fargs = fused_inputs(density_planes, npx, npy, nvx0, nvy0, spec, params)
+    k3_err, _ = check_fused("K3", force_planes_integrated, fargs, params)
+    far_x = forced_deferrals(npx, spec, 5)
+    k3_err_d, n_def = check_fused(
+        "K3", force_planes_integrated,
+        fused_inputs(density_planes, far_x, npy, nvx0, nvy0, spec, params), params)
     require(n_def > 10_000, f"too few deferred slots ({n_def})")
     record("K3", "K3 force walk + tail", "rust_particle_system_tpu_torch/csrc/sph.cu",
            "rust_particle_system_tpu/ops/pallas/sph.py:137", max(k3_err, k3_err_d),
            cuda_ms(lambda: force_planes_integrated(*fargs, params), 20),
-           cuda_ms(lambda: force_planes_integrated_plain(*fargs, force_scalars(params)), 2))
+           cuda_ms(lambda: force_planes_integrated_plain(*fargs, force_scalars(params)), 2),
+           nbytes(*fargs) + nbytes(*fargs[:4]), window_pairs(fargs[0]) * OPS_FORCE_PAIR)
     print("phase 2: K3 within pos 1e-4, vel rtol 1e-4 / atol 1e-2; deferred slots "
           f"bit-equal ({n_def} forced)")
 
-    # K3b: the raw walk on K3's inputs; held through the velocity update it
-    # feeds (K3's velocity bars), parked walk slots bit-equal.
+    # K3b: the raw walk on K3's inputs.
     bargs = fargs[:7]
-    kraw = force_planes(*bargs, params)
-    praw = force_planes_plain(*bargs, force_scalars(params))
-    scal = force_scalars(params)
-    wl = fargs[0] < 5e5
-    k3b_err = 0.0
-    for v, fi, fvi in ((nvx0, 0, 2), (nvy0, 1, 3)):
-        kv = v + kraw[fi] * scal[2] + kraw[fvi] * scal[3]
-        pv = v + praw[fi] * scal[2] + praw[fvi] * scal[3]
-        require(close(kv, pv, 1e-4, 1e-2, wl),
-                "K3b velocity update differs from the plain version beyond rtol 1e-4 / atol 1e-2")
-        k3b_err = max(k3b_err, max_abs(kv, pv, wl))
-    require(all(torch.equal(x[~wl], y[~wl]) for x, y in zip(kraw, praw)),
-            "K3b parked walk slots differ from the plain version")
+    k3b_err = check_raw("K3b", force_planes, fargs, params)
     record("K3b", "K3b force walk, raw sums", "rust_particle_system_tpu_torch/csrc/sph.cu",
            "rust_particle_system_tpu/ops/pallas/sph.py:137", k3b_err,
            cuda_ms(lambda: force_planes(*bargs, params), 20),
-           cuda_ms(lambda: force_planes_plain(*bargs, force_scalars(params)), 2))
+           cuda_ms(lambda: force_planes_plain(*bargs, force_scalars(params)), 2),
+           nbytes(*bargs) + nbytes(*bargs[:4]), window_pairs(bargs[0]) * OPS_FORCE_PAIR)
     # The unfused tail (K3b + torch) against the fused one (K3): one frame on
     # the 1M state, slot by slot (the rebin before the walks is shared).
     fu = R.plane_step(ps, params, spec, fuse_tail=False)
@@ -379,6 +467,15 @@ def main() -> int:
         require(float(pa[-1].sum()) > 0, f"K4 ({label}): nothing drawn")
         return ins, max_abs(ka, pa)
 
+    def k4_work(ins) -> tuple:
+        """(bytes, operations) of one K4 call: its planes in, its accumulators
+        out, and every live slot over its (sy + 2m) x (sx + 2m) patch."""
+        ppx, ppy, cols, (H, W, sx, sy, m), _ = ins
+        nch = len(cols) + 1
+        live = int((ppx < 0.5 * FAR).sum())
+        return (nbytes(ppx, ppy, *cols) + 4 * nch * H * W,
+                live * (sy + 2 * m) * (sx + 2 * m) * ops_raster(nch))
+
     rs_main = RenderSpec()
     img_st = R.plane_step(ps, params, spec)
     k4_ins, k4_err = check_k4("main path, sum rule", img_st, (BOUNDS, spec), rs_main,
@@ -393,7 +490,7 @@ def main() -> int:
     record("K4", "K4 plane rasterizer", "rust_particle_system_tpu_torch/csrc/splat_planes.cu",
            "rust_particle_system_tpu/render/splat_planes.py:222", max(k4_err, e4, e2),
            cuda_ms(lambda: raster_planes(*k4_ins, True), 20),
-           cuda_ms(lambda: raster_planes_plain(*k4_ins, True), 2))
+           cuda_ms(lambda: raster_planes_plain(*k4_ins, True), 2), *k4_work(k4_ins))
     # K10: bounds (0, 90, 0, 45), 9-unit cells, a 90x180 image: sy = 36 px,
     # patch height 42 > 32, so the JAX package takes its v1 rasterizer.
     v1_bounds = (0.0, 90.0, 0.0, 45.0)
@@ -410,38 +507,195 @@ def main() -> int:
            "rust_particle_system_tpu_torch/csrc/splat_planes.cu",
            "rust_particle_system_tpu/render/splat_planes.py:156", max(k10_err, e10),
            cuda_ms(lambda: raster_planes(*k10_ins, True), 20),
-           cuda_ms(lambda: raster_planes_plain(*k10_ins, True), 5))
+           cuda_ms(lambda: raster_planes_plain(*k10_ins, True), 5), *k4_work(k10_ins))
     print(f"phase 2: K4 within rtol/atol 1e-4 at 1080p (sum rule {k4_err:.2e}, given "
           f"colours {e4:.2e}, radius 2 {e2:.2e}) and at the v1 geometry (K10, "
           f"{max(k10_err, e10):.2e})")
 
-    # The whole step on a small input: kernels (card) vs plain versions (CPU).
-    small = GridSpec.from_bounds((-90.0, 90.0, -45.0, 45.0), 9.0, 128)
-    sp = make_params(bounds=(-90.0, 90.0, -45.0, 45.0), gravity=400.0)
+    # K6 on the JAX package's headline configuration (bench.py:387-389): 1M
+    # uniform particles, capacity 64, pair-packed, gravity 300, shader_delay 0,
+    # a few frames in.  Its three walks against their plain versions (which
+    # walk the TPU's 3x4 pair window), then against K2/K3 on the same planes
+    # of the classic C=64 layout.
+    spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
+    classic64 = dataclasses.replace(spec2, pack2=False)
+    p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
+    ps2 = uniform_plane_state(torch, spec2, N_1M, seed=2)
+    for _ in range(3):
+        ps2 = R.plane_step(ps2, p2, spec2)
+    require(int(ps2.lost) == 0 and int(ps2.live.sum()) == N_1M, "1M pack2 state lost particles")
+    (qx, qy, qvx, qvy, _), _ = rebin_planes(R.predict_planes(ps2, p2), spec2)
+    wx, wy = R.walk_positions(qx, qy, spec2)
+    (rho2, rhon2), k6d_err = check_density("K6", density_pairs, wx, wy, p2, pair=True)
+    fargs2 = fused_inputs(density_pairs, qx, qy, qvx, qvy, spec2, p2)
+    k6f_err, _ = check_fused("K6", force_pairs_integrated, fargs2, p2, pair=True)
+    k6f_err_d, n_def2 = check_fused(
+        "K6", force_pairs_integrated,
+        fused_inputs(density_pairs, forced_deferrals(qx, spec2, 6), qy, qvx, qvy, spec2, p2),
+        p2, pair=True)
+    require(n_def2 > 10_000, f"too few deferred slots ({n_def2})")
+    k6r_err = check_raw("K6", force_pairs, fargs2, p2, pair=True)
+    # Small grids: C=32, and an odd width (cell 9.5 = smoothing radius 9.5:
+    # gw=21, the last pair's second cell outside the grid), from drifted demo
+    # planes whose out-of-cell particles the defer mask parks.
+    for label, bounds, cap, h in (("C=32", (-90.0, 90.0, -45.0, 45.0), 32, 9.0),
+                                  ("odd gw", (-95.0, 95.0, -50.0, 50.0), 64, 9.5)):
+        sp = GridSpec.from_bounds(bounds, h, cap, pack2=True)
+        prm = make_params(bounds=bounds, gravity=300.0, smoothing_radius=h)
+        require(sp.gw % 2 == 1, f"{label}: expected an odd grid width, got {sp.gw}")
+        pl = demo_planes(torch, sp, 0.4, 0.3, seed=cap, device="cuda")
+        fa = fused_inputs(density_pairs, pl[0], pl[1], pl[2] * 20, pl[3] * 20, sp, prm)
+        k6d_err = max(k6d_err, check_density(f"K6 ({label})", density_pairs, fa[0], fa[1],
+                                             prm, pair=True)[1])
+        e, nd = check_fused(f"K6 ({label})", force_pairs_integrated, fa, prm, pair=True)
+        require(nd > 0, f"K6 ({label}): no deferred slot")
+        k6f_err = max(k6f_err, e)
+        k6r_err = max(k6r_err, check_raw(f"K6 ({label})", force_pairs, fa, prm, pair=True))
+    # Against the classic kernels on the same C=64 planes (the layouts differ
+    # only in block shape): K2's and K3's bars.
+    ca_ = density_planes(wx, wy, p2)
+    require(all(close(x, y, 1e-5, 0.0, wx < 5e5) for x, y in zip((rho2, rhon2), ca_)),
+            "K6 density differs from K2 at C=64 beyond rtol 1e-5")
+    kf, cf = force_pairs_integrated(*fargs2, p2), force_planes_integrated(*fargs2, p2)
+    live2 = qx < 5e5
+    require(all(close(x, y, 1e-4, 1e-4 if i < 2 else 1e-2, live2)
+                for i, (x, y) in enumerate(zip(kf, cf))),
+            "K6 fused walk differs from K3 at C=64 beyond the K3 bars")
+    require(all(torch.equal(x[~live2], y[~live2]) for x, y in zip(kf, cf)),
+            "K6 and K3 park dead slots differently")
+    vs_classic = max(max_abs(x, y, live2) for x, y in zip(kf, cf))
+    # Times in turns on the same planes: K6, classic, classic, K6.
+    bargs2 = fargs2[:7]
+    pair_ms = {"K6 density": [], "K2 density (C=64)": [], "K6 force + tail": [],
+               "K3 force + tail (C=64)": [], "K6 raw": [], "K3b raw (C=64)": []}
+    for order in ((0, 1), (1, 0)):
+        for i in order:
+            if i == 0:
+                pair_ms["K6 density"].append(cuda_ms(lambda: density_pairs(wx, wy, p2), 20))
+                pair_ms["K6 force + tail"].append(
+                    cuda_ms(lambda: force_pairs_integrated(*fargs2, p2), 20))
+                pair_ms["K6 raw"].append(cuda_ms(lambda: force_pairs(*bargs2, p2), 20))
+            else:
+                pair_ms["K2 density (C=64)"].append(
+                    cuda_ms(lambda: density_planes(wx, wy, p2), 20))
+                pair_ms["K3 force + tail (C=64)"].append(
+                    cuda_ms(lambda: force_planes_integrated(*fargs2, p2), 20))
+                pair_ms["K3b raw (C=64)"].append(cuda_ms(lambda: force_planes(*bargs2, p2), 20))
+    pairs2 = window_pairs(wx)
+    sc2 = density_scalars(p2), force_scalars(p2)
+    record("K6d", "K6 pair-packed density walk", "rust_particle_system_tpu_torch/csrc/sph.cu",
+           "rust_particle_system_tpu/ops/pallas/sph.py:137", k6d_err,
+           min(pair_ms["K6 density"]),
+           cuda_ms(lambda: density_planes_plain(wx, wy, *sc2[0], pair=True), 2),
+           nbytes(wx, wy, rho2, rhon2), pairs2 * OPS_DENSITY_PAIR)
+    record("K6f", "K6 pair-packed force walk + tail",
+           "rust_particle_system_tpu_torch/csrc/sph.cu",
+           "rust_particle_system_tpu/ops/pallas/sph.py:137", max(k6f_err, k6f_err_d),
+           min(pair_ms["K6 force + tail"]),
+           cuda_ms(lambda: force_planes_integrated_plain(*fargs2, sc2[1], pair=True), 2),
+           nbytes(*fargs2) + nbytes(*fargs2[:4]), window_pairs(fargs2[0]) * OPS_FORCE_PAIR)
+    record("K6r", "K6 pair-packed force walk, raw sums",
+           "rust_particle_system_tpu_torch/csrc/sph.cu",
+           "rust_particle_system_tpu/ops/pallas/sph.py:137", k6r_err, min(pair_ms["K6 raw"]),
+           cuda_ms(lambda: force_planes_plain(*bargs2, sc2[1], pair=True), 2),
+           nbytes(*bargs2) + nbytes(*bargs2[:4]), window_pairs(bargs2[0]) * OPS_FORCE_PAIR)
+    print(f"phase 2: K6 (1M pair-packed C=64, {pairs2} window pairs) density "
+          f"{k6d_err:.2e}, fused {max(k6f_err, k6f_err_d):.2e} ({n_def2} forced "
+          f"deferrals), raw {k6r_err:.2e}, also at C=32 and odd gw; vs K2/K3 at C=64 "
+          f"{vs_classic:.2e}; ms in turns {json.dumps(pair_ms)} [{card}]")
+
+    # K8: the N-body disc at n = 16,384 (BASELINE.json config 3) and 1000, and
+    # 1000 particles of which 500 share one point.  Bar: the JAX test's rtol
+    # 2e-4 / atol 2e-3 (tests/test_pallas_nbody.py:18) with the relative part
+    # taken of sum_j |delta_ij w_ij|, the magnitude each f32 sum carries: at
+    # 16k, terms of ~100 cancel to near 0 and their rounding is left over.
+    nparams = make_nbody_params()
+    nmodel = MODEL_FAMILIES["nbody"].create()
+
+    def term_scale(pos):
+        eps2 = float(np.float32(nparams.softening) ** 2)
+        out = []
+        for i0 in range(0, pos.shape[0], 1024):
+            d = pos[None] - pos[i0: i0 + 1024, None]
+            inv = torch.rsqrt((d * d).sum(-1) + eps2)
+            w = nparams.g_const * inv ** 3 - nparams.repulsion * nparams.softening * inv ** 4
+            out.append((d.abs() * w.abs()[..., None]).sum(1))
+        return torch.cat(out)
+
+    k8_err = 0.0
+    for label, n in (("disc", N_NBODY), ("disc", 1000), ("coincident", 1000)):
+        pos = nmodel.init(torch.Generator(device="cuda").manual_seed(n), n).pos
+        if label == "coincident":
+            pos[:500] = pos[0].clone()
+        ka, pa = nbody_accel(pos, nparams), nbody_accel_plain(pos, nparams)
+        require(bool(torch.isfinite(ka).all()), f"K8 ({label}, n={n}) not finite")
+        require(bool(torch.all((ka - pa).abs() <= 2e-3 + 2e-4 * term_scale(pos))),
+                f"K8 ({label}, n={n}) differs from its plain version beyond the bar")
+        k8_err = max(k8_err, max_abs(ka, pa))
+    pos16 = nmodel.init(torch.Generator(device="cuda").manual_seed(N_NBODY), N_NBODY).pos
+    record("K8", "K8 all-pairs N-body", "rust_particle_system_tpu_torch/csrc/nbody.cu",
+           "rust_particle_system_tpu/ops/pallas/nbody.py:28", k8_err,
+           cuda_ms(lambda: nbody_accel(pos16, nparams), 20),
+           cuda_ms(lambda: nbody_accel_plain(pos16, nparams), 3),
+           2 * nbytes(pos16), N_NBODY * N_NBODY * OPS_NBODY_PAIR)
+    print(f"phase 2: K8 within the bar at n={N_NBODY} and 1000 (coincident particles "
+          f"finite), max abs err {k8_err:.2e}")
+
+    # The whole step on a small input, in both layouts: kernels (card) vs
+    # plain versions (CPU).
+    sb = (-90.0, 90.0, -45.0, 45.0)
+    sp = make_params(bounds=sb, gravity=400.0)
     g2 = torch.Generator(device="cpu").manual_seed(3)
     spos = torch.stack([torch.rand(3000, generator=g2) * 180 - 90,
                         (torch.randn(3000, generator=g2) * 11.25).clamp(-45, 45)], -1)
-    sc = R.plane_state_from_particles(port.make_state(spos.cuda()), small)
-    sh = R.plane_state_from_particles(port.make_state(spos), small)
-    for i in range(9):
-        sc, sh = R.plane_step(sc, sp, small), R.plane_step(sh, sp, small)
-        if i == 5:  # one live frame
-            gc, gh_ = sc.to_particle_state(), sh.to_particle_state()
-            require(close(gc.pos.cpu(), gh_.pos, 1e-4, 1e-4)
-                    and close(gc.vel.cpu(), gh_.vel, 1e-4, 1e-2),
-                    "one live frame: card differs from the plain path")
-    gc, gh_ = sc.to_particle_state(), sh.to_particle_state()
-    require(int(sc.lost) == 0 and int(sc.live.sum()) == 3000, "small run lost particles")
-    require(bool(torch.equal(gc.ids.cpu(), gh_.ids)), "small run ids differ")
-    require(max_abs(gc.pos.cpu(), gh_.pos) <= 5e-4 and max_abs(gc.vel.cpu(), gh_.vel) <= 5e-3,
-            "4 live frames: card differs from the plain path beyond 5e-4 / 5e-3")
-    print("phase 2: whole step, card vs plain (CPU): 1 live frame within 1e-4, "
-          f"4 live frames pos {max_abs(gc.pos.cpu(), gh_.pos):.2e} "
-          f"vel {max_abs(gc.vel.cpu(), gh_.vel):.2e}")
+    for small in (GridSpec.from_bounds(sb, 9.0, 128),
+                  GridSpec.from_bounds(sb, 9.0, 64, pack2=True)):
+        sc = R.plane_state_from_particles(port.make_state(spos.cuda()), small)
+        sh = R.plane_state_from_particles(port.make_state(spos), small)
+        for i in range(9):
+            sc, sh = R.plane_step(sc, sp, small), R.plane_step(sh, sp, small)
+            if i == 5:  # one live frame
+                gc, gh_ = sc.to_particle_state(), sh.to_particle_state()
+                require(close(gc.pos.cpu(), gh_.pos, 1e-4, 1e-4)
+                        and close(gc.vel.cpu(), gh_.vel, 1e-4, 1e-2),
+                        f"one live frame (C={small.capacity}): card differs from the "
+                        "plain path")
+        gc, gh_ = sc.to_particle_state(), sh.to_particle_state()
+        require(int(sc.lost) == 0 and int(sc.live.sum()) == 3000, "small run lost particles")
+        require(bool(torch.equal(gc.ids.cpu(), gh_.ids)), "small run ids differ")
+        require(max_abs(gc.pos.cpu(), gh_.pos) <= 5e-4
+                and max_abs(gc.vel.cpu(), gh_.vel) <= 5e-3,
+                f"4 live frames (C={small.capacity}): card differs from the plain path "
+                "beyond 5e-4 / 5e-3")
+        print(f"phase 2: whole step (C={small.capacity}, pack2={small.pack2}), card vs "
+              f"plain (CPU): 1 live frame within 1e-4, 4 live frames pos "
+              f"{max_abs(gc.pos.cpu(), gh_.pos):.2e} vel {max_abs(gc.vel.cpu(), gh_.vel):.2e}")
+
+    # The other models' steps on a small input, 3 frames from one state: card
+    # vs CPU.  Bars: the N-body step's JAX bars, pos rtol/atol 1e-4 and vel
+    # rtol 1e-4 / atol 2e-3 (tests/test_pallas_nbody.py:36-37), for all three:
+    # the flow and attractor steps differ only in the last ulp of cos, sqrt
+    # and division between the CUDA and CPU libraries.
+    for m, n in (("nbody", 1000), ("flow", 3000), ("attractor", 3000)):
+        mc = MODEL_FAMILIES[m].create()
+        prm = mc.default_params()
+        s0 = MODEL_FAMILIES[m].create(device="cpu").init(
+            torch.Generator().manual_seed(4), n)
+        st_c, st_h = port.make_state(s0.pos.cuda()), port.make_state(s0.pos)
+        for _ in range(3):
+            st_c, st_h = mc.step(st_c, prm), mc.step(st_h, prm)
+        require(close(st_c.pos.cpu(), st_h.pos, 1e-4, 1e-4)
+                and close(st_c.vel.cpu(), st_h.vel, 1e-4, 2e-3) and st_c.frame == 3,
+                f"{m}: 3 steps on the card differ from the CPU beyond the bars")
+        print(f"phase 2: {m} x {n}, 3 steps, card vs CPU: pos "
+              f"{max_abs(st_c.pos.cpu(), st_h.pos):.2e} vel "
+              f"{max_abs(st_c.vel.cpu(), st_h.vel):.2e}")
 
     # ---------------- phase 3: the user entry points ----------------
     kernels = {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
-               "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos}
+               "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
+               "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
+               "K8": nbody_accel}
     paths = {}
 
     def reset():
@@ -552,10 +806,70 @@ def main() -> int:
     require(int(s1.lost) == 0 and int(s1.live.sum()) == 1500, "v1 run lost particles")
     print(f"phase 3: v1 geometry (90x180 px, 9x36 px cells) 10 step_and_render "
           f"frames ok; launches {launches}")
+
+    # pack2: the pair-packed model through Simulation, then step_and_render.
+    reset()
+    mp = SPHFluid.create(n=200_000, capacity=64, pack2=True)
+    simp = Simulation(mp)
+    simp.update_params(gravity=300.0)
+    for _ in range(3):
+        simp.run(15)
+        require(int(simp.state.lost) == 0 and int(simp.state.live.sum()) == 200_000,
+                "the pair-packed model lost particles")
+    statsp = simp.stats()
+    sq = simp.state
+    for _ in range(5):
+        sq, imgp = mp.step_and_render(sq, simp.params)
+    torch.cuda.synchronize()
+    launches = read("pack2")
+    require(all(launches[k] > 0 for k in ("K1", "K4", "K5", "K6d", "K6f"))
+            and launches["K2"] == launches["K3"] == launches["K3b"] == 0,
+            f"the pack2 path did not run K6 in place of K2/K3: {launches}")
+    require(int(sq.lost) == 0 and int(sq.live.sum()) == 200_000
+            and bool(torch.isfinite(imgp).all()), "pack2 step_and_render frames")
+    print(f"phase 3: pack2 (C=64) 200k x 45 frames + 5 step_and_render ok (lost 0, live "
+          f"200000, max occupancy {statsp['grid_max_occupancy']}); launches {launches}")
+
+    # pack2_unfused: its frame with the unfused tail (K6's raw walk).
+    reset()
+    for _ in range(5):
+        sq, imgp = R.plane_frame(sq, simp.params, mp.grid, mp.render_spec,
+                                 bounds_static=mp.bounds, fuse_tail=False)
+    torch.cuda.synchronize()
+    launches = read("pack2_unfused")
+    require(launches["K6r"] > 0 and launches["K6f"] == launches["K3b"] == 0,
+            f"the unfused pack2 path did not run K6's raw walk alone: {launches}")
+    require(int(sq.live.sum()) == 200_000, "unfused pack2 frames lost particles")
+    print(f"phase 3: 5 pack2 plane_frame(fuse_tail=False) frames ok; launches {launches}")
+
+    # nbody, flow, attractor: the CLI with --model, its PNG and --stats.
+    model_runs = {"nbody": (N_NBODY, 30), "flow": (N_1M, 30), "attractor": (65_536, 30)}
+    for m, (n, frames) in model_runs.items():
+        png_m = HERE / "build" / f"chip_smoke_{m}.png"
+        reset()
+        rc = cli.main(["--model", m, "--n", str(n), "--frames", str(frames),
+                       "--render", str(png_m), "--stats"])
+        torch.cuda.synchronize()
+        launches = read(m)
+        require(rc == 0, f"cli --model {m} exited {rc}")
+        require((launches["K8"] > 0) == (m == "nbody")
+                and all(v == 0 for k, v in launches.items() if k != "K8"),
+                f"cli --model {m}: unexpected launches {launches}")
+        got = read_png(png_m)
+        lit = int((got[..., :3].max(-1) > 0).sum())
+        require(got.shape == (1080, 1920, 4) and lit > 1000,
+                f"cli --model {m}: PNG {got.shape} with {lit} pixels lit")
+        print(f"phase 3: cli --model {m} --n {n} --frames {frames} --render {png_m.name} "
+              f"--stats ok ({lit} px lit); launches {launches}")
+
     for k in ("K1", "K2", "K3", "K4", "K5"):
         rows[k]["launches"] = paths["scene"][k]
     rows["K3b"]["launches"] = paths["unfused"]["K3b"]
     rows["K10"]["launches"] = paths["v1"]["K4"]
+    rows["K6d"]["launches"] = paths["pack2"]["K6d"]
+    rows["K6f"]["launches"] = paths["pack2"]["K6f"]
+    rows["K6r"]["launches"] = paths["pack2_unfused"]["K6r"]
+    rows["K8"]["launches"] = paths["nbody"]["K8"]
 
     # ---------------- phase 4: 1M uniform, C=128 ----------------
     p4 = make_params(bounds=BOUNDS)
@@ -581,11 +895,40 @@ def main() -> int:
     print(f"phase 4: 1M uniform C=128: step {ms1m:.3f} ms/frame "
           f"({N_1M / ms1m * 1e3:,.0f} particle-steps/s), render alone {ms_render:.3f} ms, "
           f"step_and_render {ms_fused:.3f} ms/frame [{card}]")
-    order = ("K5", "K1", "K2", "K3", "K3b", "K4", "K10")
+
+    # The JAX package's headline configuration (bench.py:387-389), pair-packed
+    # against classic at the same C=64, in turns from the same state.
+    st2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
+    for _ in range(5):
+        st2 = R.plane_step(st2, p2, spec2)
+    ms64 = {"pack2": [], "classic": []}
+    for layout in ("pack2", "classic", "classic", "pack2"):
+        sp_ = spec2 if layout == "pack2" else classic64
+        held = [st2]
+
+        def frame2(sp_=sp_, held=held):
+            held[0] = R.plane_step(held[0], p2, sp_)
+
+        ms64[layout].append(cuda_ms(frame2, 40))
+        require(int(held[0].lost) == 0 and int(held[0].live.sum()) == N_1M,
+                f"1M {layout} C=64 run lost particles")
+    print(f"phase 4: 1M uniform C=64, gravity 300: pack2 step {ms64['pack2']} ms/frame, "
+          f"classic {ms64['classic']} ms/frame (in turns) [{card}]")
+
+    # The other models' frames: N-body at 16,384, flow at 1M, attractor at 64k.
+    ms_models = {}
+    for m, n in (("nbody", N_NBODY), ("flow", N_1M), ("attractor", 65_536)):
+        simm = Simulation(MODEL_FAMILIES[m].create(), n=n, seed=1)
+        simm.run(3)
+        ms_models[m] = cuda_ms(lambda: simm.run(1), 50 if m == "nbody" else 200)
+        require(bool(torch.isfinite(simm.state.pos).all()), f"{m} frames not finite")
+    print(f"phase 4: ms/frame {json.dumps(ms_models)} (nbody n={N_NBODY}, flow n={N_1M}, "
+          f"attractor n=65536) [{card}]")
+    order = ("K5", "K1", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r", "K8")
     for k in order:
         r = rows[k]
         print(f"phase 4: {r['name']}: {r['ms']:.3f} ms kernel vs {r['plain_ms']:.3f} ms "
-              f"plain [{card}]")
+              f"plain, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
 
     result = {"kernels": [rows[k] for k in order]}
     if args.out:
@@ -594,7 +937,8 @@ def main() -> int:
             **result, "card": card, "build_s": build_s, "ms_per_frame_50k": ms50,
             "ms_per_frame_1m": ms1m, "ms_render_1m": ms_render,
             "ms_step_and_render_1m": ms_fused, "scene_300_s": scene_s,
-            "paths": paths}, indent=1))
+            "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms,
+            "ms_per_frame_models": ms_models, "paths": paths}, indent=1))
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,12 +4,16 @@
     python3 profile_step.py [--frames 100] [--out breakdown.json]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc; it
-imports nothing of JAX.  Two configurations, the ones ``chip_smoke.py`` times,
-each as the step alone and as the rendered frame (``step_and_render``, the
-step plus the 1080p image through the plane rasterizer):
+imports nothing of JAX.  The configurations ``chip_smoke.py`` times:
 
-  * 1M particles, uniform, C=128, after 5 live frames;
-  * the 50k reference scene (gravity 400) after 300 frames.
+  * 1M particles, uniform, C=128, after 5 live frames, as the step alone and
+    as the rendered frame (``step_and_render``, the step plus the 1080p image
+    through the plane rasterizer);
+  * the 50k reference scene (gravity 400) after 300 frames, the same two ways;
+  * 1M particles, uniform, pair-packed C=64 (the JAX package's headline
+    configuration, bench.py:387-389), the step, restarted every 40 frames;
+  * the N-body at 16,384, the flow field at 1M and the attractor at 65,536
+    particles, a frame each through ``Simulation.run(1)``.
 
 For each case it measures, over ``--frames`` frames each:
 
@@ -99,8 +103,9 @@ def main() -> int:
         raise SystemExit("profile_step: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(HERE))
-    from chip_smoke import BOUNDS, N_1M, gpu_line, uniform_plane_state
+    from chip_smoke import BOUNDS, N_1M, N_NBODY, gpu_line, uniform_plane_state
     from rust_particle_system_tpu_torch.core.params import make_params
+    from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.sph import SPHFluid
     from rust_particle_system_tpu_torch.ops.cuda import resident as R
     from rust_particle_system_tpu_torch.ops.grid import GridSpec
@@ -132,10 +137,31 @@ def main() -> int:
     def render_frame_50k():
         sim.state, _ = sim.model.step_and_render(sim.state, sim.params)
 
+    spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
+    p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
+    start2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
+    for _ in range(5):
+        start2 = R.plane_step(start2, p2, spec2)
+    held2 = [start2, 0]
+
+    def frame_pack2():
+        # Restart from the 5-frame state every 40 frames, as chip_smoke.py
+        # times it: under gravity 300 the uniform state falls and, over the
+        # hundreds of frames profiled here, piles up at the floor, where the
+        # rebin defers most particles out of the walks.
+        if held2[1] % 40 == 0:
+            held2[0] = start2
+        held2[0] = R.plane_step(held2[0], p2, spec2)
+        held2[1] += 1
+    others = {m: Simulation(MODEL_FAMILIES[m].create(), n=n, seed=1)
+              for m, n in (("nbody", N_NBODY), ("flow", N_1M), ("attractor", 65_536))}
+
     cases = {"1M uniform C=128": frame_1m,
              "1M uniform C=128, step_and_render": render_frame_1m,
              "50k scene after frame 300": lambda: sim.run(1),
-             "50k scene, step_and_render": render_frame_50k}
+             "50k scene, step_and_render": render_frame_50k,
+             "1M uniform pack2 C=64, gravity 300": frame_pack2,
+             **{f"{m} x {o.n}": (lambda o=o: o.run(1)) for m, o in others.items()}}
     for key, frame in cases.items():
         out[key] = timing(torch, frame, args.frames)
     for key, frame in cases.items():
@@ -147,6 +173,8 @@ def main() -> int:
         raise RuntimeError("1M run lost particles")
     if int(sim.state.lost) != 0 or int(sim.state.live.sum()) != 50_000:
         raise RuntimeError("50k run lost particles")
+    if int(held2[0].lost) != 0 or int(held2[0].live.sum()) != N_1M:
+        raise RuntimeError("1M pack2 run lost particles")
 
     text = json.dumps(out, indent=1)
     if args.out:

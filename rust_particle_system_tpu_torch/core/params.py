@@ -55,8 +55,27 @@ def f32_mul(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
+def _f32_tree(v):
+    return tuple(_f32_tree(x) for x in v) if isinstance(v, (tuple, list)) else f32(v)
+
+
+class F32Params:
+    """Base of the models' frozen parameter dataclasses: fields annotated
+    ``int`` hold ints, every other field a float32 scalar or a tuple (of
+    tuples) of them, rounded on construction, as JAX holds them."""
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            object.__setattr__(self, f.name,
+                               int(v) if f.type in (int, "int") else _f32_tree(v))
+
+    def replace(self, **kwargs):
+        return dataclasses.replace(self, **kwargs)
+
+
 @dataclasses.dataclass(frozen=True)
-class SimParams:
+class SimParams(F32Params):
     """All simulation scalars; field names match the JAX ``SimParams``."""
 
     particle_size: float
@@ -76,20 +95,9 @@ class SimParams:
     shader_delay: int
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if f.name == "bounds":
-                v = tuple(f32(b) for b in v)
-                if len(v) != 4:
-                    raise ValueError("bounds must be (x_min, x_max, y_min, y_max)")
-            elif f.name == "shader_delay":
-                v = int(v)
-            else:
-                v = f32(v)
-            object.__setattr__(self, f.name, v)
-
-    def replace(self, **kwargs) -> "SimParams":
-        return dataclasses.replace(self, **kwargs)
+        super().__post_init__()
+        if len(self.bounds) != 4:
+            raise ValueError("bounds must be (x_min, x_max, y_min, y_max)")
 
 
 def kernel_norms(smoothing_radius: float) -> tuple[float, float, float]:

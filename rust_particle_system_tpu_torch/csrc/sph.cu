@@ -1,11 +1,14 @@
 // K2 (density walk), K3 (fused pressure + viscosity walk with the frame
-// tail in its epilogue) and K3b (the same walk with the raw-sum epilogue)
-// over [gh, gw, C] cell planes.
+// tail in its epilogue), K3b (the same walk with the raw-sum epilogue), and
+// K6 (the same three walks in the pair-packed block shape) over [gh, gw, C]
+// cell planes.
 //
 // Replace rust_particle_system_tpu/ops/pallas/sph.py::_make_seg_kernel with
 // _density_update (via density_planes), with _force_update +
 // _force_finalize_integrated (via force_planes_integrated) and with
-// _force_update + _force_finalize (via force_planes).
+// _force_update + _force_finalize (via force_planes): n_dx=3 for the classic
+// layout (K2, K3, K3b), n_dx=2 for the pair-packed one (K6, driven by
+// ops/pallas/sph_step.py:95-153).
 //
 // What they compute, per own slot i, over the 3x3 neighbour cells j (self
 // included; sentinel-parked slots contribute exactly 0 and are skipped):
@@ -22,17 +25,30 @@
 //        (fx, fy - self, Sx - vx S, Sy - vy S).  Slots whose walk position is
 //        parked get zero sums (and the self term); the caller's tail restores
 //        or parks them.  K3 and K3b are one template over the epilogue.
+//   K6   the same outputs, in the same [gh, gw, C] planes, from blocks that
+//        each serve a PAIR of cells (2p, 2p+1) of one row.  The TPU packed the
+//        pair into one 128-lane row and read the half-shifted units B[p] and
+//        B[p+1] (cells 2p-1 .. 2p+2, rows r-1 .. r+1): 6 neighbour tiles per own
+//        tile instead of 9.  Here the block stages the live slots of that 3x4
+//        window once, column by column, so that each own cell's 3x3 window is
+//        one contiguous range of it: cell 2p walks columns 2p-1 .. 2p+1, cell
+//        2p+1 walks 2p .. 2p+2.  The TPU also walked the fourth column; those
+//        cells are at least a cell width (>= h) away, so they add exact zeros,
+//        and skipping them keeps the pair count equal to the classic walk's
+//        (a third fewer than the full window).  Each neighbour cell is staged
+//        by 6 blocks instead of 9.
 //
 // Bound on the H100: arithmetic on the pair loop (one sqrt and one divide per
-// pair in K3), not memory: each block reads its 9 neighbour cells once.  The
+// pair in K3), not memory: each block reads its neighbour cells once.  The
 // TPU evaluated all C x 9C slot pairs as dense vector tiles, lane-padded to
 // 128, gated by 32-slot chunks.  Here a block stages only the LIVE neighbour
 // slots in shared memory (compacted with ballots), so the pair loop runs over
 // the live count, not 9C, and threads of dead own slots skip it.  Every thread
-// reads the same staged neighbour at a time: a shared-memory broadcast.
-// 1.0f / sqrtf is used, not rsqrtf, which is not correctly rounded.  nvcc
-// contracts a * b + c into fused multiply-adds (its default, as XLA does on
-// the CPU); the plain version does not, so the two differ by rounding only.
+// of an own cell reads the same staged neighbour at a time: a shared-memory
+// broadcast.  1.0f / sqrtf is used, not rsqrtf, which is not correctly
+// rounded.  nvcc contracts a * b + c into fused multiply-adds (its default, as
+// XLA does on the CPU); the plain version does not, so the two differ by
+// rounding only.
 
 #include "common.cuh"
 
@@ -69,20 +85,94 @@ __device__ int stage_live_neighbours(const float* const (&src)[NCH],
   return m;
 }
 
+// A thread's own slot and the staged neighbour range it walks.
+struct Own {
+  size_t o;     // own slot offset in the planes
+  int lo, hi;   // staged neighbours [lo, hi)
+  bool valid;   // the thread owns a slot of an in-grid cell
+};
+
+// Cells a block stages: its 3x3 window, or a pair's 3x4 window.
+template <bool kPair>
+constexpr int kWindowCells = kPair ? 12 : 9;
+
+// Classic block: cell (r, c) = (blockIdx.y, blockIdx.x), thread s owns slot s.
+template <int NCH>
+__device__ Own stage_cell(const float* const (&src)[NCH], float* const (&dst)[NCH],
+                          int* scratch, int gh, int gw, int C) {
+  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const int m = stage_live_neighbours<NCH>(src, dst, scratch, r, c, gh, gw, C);
+  return {(static_cast<size_t>(r) * gw + c) * C + s, 0, m, s < C};
+}
+
+// Pair block (K6): cells (r, 2p) and (r, 2p + 1), p = blockIdx.x; thread t
+// owns slot t % C of cell 2p + t / C (t >= 2C: ballots only).  The live slots
+// of columns 2p-1 .. 2p+2, rows r-1 .. r+1 are staged column-major (column
+// outer, row inner), two cells per round; col[k] is where window column k
+// starts, so cell 2p + h's 3x3 window is the range [col[h], col[h + 3]).
+// An odd gw leaves the last pair's second cell out of the grid: it is staged
+// as empty and owns nothing, like the TPU's dead phantom cell.
+template <int NCH>
+__device__ Own stage_pair(const float* const (&src)[NCH], float* const (&dst)[NCH],
+                          int* scratch, int gh, int gw, int C) {
+  const int p = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
+  const int half = t / C, s = t - half * C;
+  int col[5];
+  col[0] = 0;
+  int m = 0;
+  for (int k = 0; k < 12; k += 2) {
+    const int cell = k + half;  // window cell this thread loads this round
+    const int rr = r - 1 + cell % 3, cc = 2 * p - 1 + cell / 3;
+    bool live = false;
+    size_t o = 0;
+    if (half < 2 && rr >= 0 && rr < gh && cc >= 0 && cc < gw) {
+      o = (static_cast<size_t>(rr) * gw + cc) * C + s;
+      live = src[0][o] < kLiveBelow;
+    }
+    // Threads of cell k precede those of cell k + 1, so one block-wide
+    // prefix places both cells; the second count splits them.
+    const bool pr[2] = {live, live && half == 0};
+    int inc[2], tot[2];
+    rps::block_count<2>(pr, inc, tot, scratch);
+    if (live) {
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) dst[ch][m + inc[0] - 1] = src[ch][o];
+    }
+    if (k % 3 == 2) col[k / 3 + 1] = m + tot[1];  // cell k ends a column
+    if (k % 3 == 1) col[k / 3 + 1] = m + tot[0];  // cell k + 1 ends a column
+    m += tot[0];
+  }
+  __syncthreads();
+  const int own = half < 2 ? half : 1;
+  const int c = 2 * p + own;
+  return {(static_cast<size_t>(r) * gw + c) * C + s, col[own], col[own + 3],
+          half < 2 && c < gw};
+}
+
+template <bool kPair, int NCH>
+__device__ Own stage(const float* const (&src)[NCH], float* const (&dst)[NCH],
+                     int* scratch, int gh, int gw, int C) {
+  if constexpr (kPair) {
+    return stage_pair<NCH>(src, dst, scratch, gh, gw, C);
+  } else {
+    return stage_cell<NCH>(src, dst, scratch, gh, gw, C);
+  }
+}
+
+template <bool kPair>
 __global__ void density_kernel(const float* __restrict__ px, const float* __restrict__ py,
                                float* __restrict__ rho, float* __restrict__ rhon,
                                int gh, int gw, int C, float h, float dnorm,
                                float nnorm) {
   extern __shared__ float sm[];
-  const int cap9 = 9 * C;
-  float* const dst[2] = {sm, sm + cap9};
-  int* scratch = reinterpret_cast<int*>(sm + 2 * cap9);
-  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const int cap = kWindowCells<kPair> * C;
+  float* const dst[2] = {sm, sm + cap};
+  int* scratch = reinterpret_cast<int*>(sm + 2 * cap);
   const float* const src[2] = {px, py};
-  const int m = stage_live_neighbours<2>(src, dst, scratch, r, c, gh, gw, C);
-  if (s >= C) return;
+  const Own w = stage<kPair, 2>(src, dst, scratch, gh, gw, C);
+  if (!w.valid) return;
 
-  const size_t o = (static_cast<size_t>(r) * gw + c) * C + s;
+  const size_t o = w.o;
   const float ox = px[o], oy = py[o];
   if (!(ox < kLiveBelow)) {
     rho[o] = 0.0f;
@@ -92,7 +182,7 @@ __global__ void density_kernel(const float* __restrict__ px, const float* __rest
   const float* sx = dst[0];
   const float* sy = dst[1];
   float s2 = 0.0f, s3 = 0.0f;
-  for (int j = 0; j < m; ++j) {
+  for (int j = w.lo; j < w.hi; ++j) {
     const float dx = sx[j] - ox, dy = sy[j] - oy;
     const float d = sqrtf(dx * dx + dy * dy);
     const float v = fmaxf(h - d, 0.0f);
@@ -115,7 +205,7 @@ __device__ __forceinline__ void bounce(float& x, float& v, float lo, float hi,
   x = fminf(fmaxf(x, lo), hi);
 }
 
-template <bool kTail>
+template <bool kPair, bool kTail>
 __global__ void force_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ P1, const float* __restrict__ NPn,
@@ -125,16 +215,15 @@ __global__ void force_kernel(
     float* __restrict__ out_py, float* __restrict__ out_vx,
     float* __restrict__ out_vy, int gh, int gw, int C, ForceScalars k) {
   extern __shared__ float sm[];
-  const int cap9 = 9 * C;
-  float* const dst[6] = {sm, sm + cap9, sm + 2 * cap9, sm + 3 * cap9,
-                         sm + 4 * cap9, sm + 5 * cap9};
-  int* scratch = reinterpret_cast<int*>(sm + 6 * cap9);
-  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+  const int cap = kWindowCells<kPair> * C;
+  float* const dst[6] = {sm, sm + cap, sm + 2 * cap, sm + 3 * cap,
+                         sm + 4 * cap, sm + 5 * cap};
+  int* scratch = reinterpret_cast<int*>(sm + 6 * cap);
   const float* const src[6] = {px, py, P1, NPn, vx, vy};
-  const int m = stage_live_neighbours<6>(src, dst, scratch, r, c, gh, gw, C);
-  if (s >= C) return;
+  const Own w = stage<kPair, 6>(src, dst, scratch, gh, gw, C);
+  if (!w.valid) return;
 
-  const size_t o = (static_cast<size_t>(r) * gw + c) * C + s;
+  const size_t o = w.o;
   const float ox = px[o], oy = py[o], oP1 = P1[o], oNPn = NPn[o];
   const float ovx = vx[o], ovy = vy[o], oNPo = NPo[o];
   const float hh = k.h * k.h;
@@ -144,7 +233,7 @@ __global__ void force_kernel(
   if (walk_live) {
     const float *sx = dst[0], *sy = dst[1], *sP1 = dst[2], *sNPn = dst[3];
     const float *svx = dst[4], *svy = dst[5];
-    for (int j = 0; j < m; ++j) {
+    for (int j = w.lo; j < w.hi; ++j) {
       const float dx = sx[j] - ox, dy = sy[j] - oy;
       const float d2 = dx * dx + dy * dy;
       const bool near0 = d2 <= k.eps2;
@@ -197,18 +286,47 @@ cudaError_t set_shmem(const void* fn, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <bool kTail>
+// Grid and block of a walk: one block per cell (classic) or per cell pair.
+template <bool kPair>
+cudaError_t walk_shape(int gh, int gw, int C, dim3* grid, int* threads) {
+  if (C < 1 || C > (kPair ? 512 : 1024)) return cudaErrorInvalidValue;
+  *grid = dim3(kPair ? (gw + 1) / 2 : gw, gh);
+  *threads = rps::block_threads(kPair ? 2 * C : C);
+  return cudaSuccess;
+}
+
+template <bool kPair>
+cudaError_t launch_density(const float* px, const float* py, float* rho, float* rhon,
+                           int gh, int gw, int C, float h, float dnorm, float nnorm,
+                           void* stream) {
+  dim3 grid;
+  int threads;
+  cudaError_t err = walk_shape<kPair>(gh, gw, C, &grid, &threads);
+  if (err != cudaSuccess) return err;
+  const size_t shmem = 2 * kWindowCells<kPair> * static_cast<size_t>(C) * sizeof(float) +
+                       64 * sizeof(int);
+  err = set_shmem(reinterpret_cast<const void*>(density_kernel<kPair>), shmem);
+  if (err != cudaSuccess) return err;
+  density_kernel<kPair><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
+      px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm);
+  return cudaGetLastError();
+}
+
+template <bool kPair, bool kTail>
 cudaError_t launch_force(const float* px, const float* py, const float* P1,
                          const float* NPn, const float* vx, const float* vy,
                          const float* NPo, const float* npx, const float* npy,
                          float* o0, float* o1, float* o2, float* o3, int gh, int gw,
                          int C, ForceScalars k, void* stream) {
-  if (C < 1 || C > 1024) return cudaErrorInvalidValue;
-  const size_t shmem = 6 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
-  cudaError_t err = set_shmem(reinterpret_cast<const void*>(force_kernel<kTail>), shmem);
+  dim3 grid;
+  int threads;
+  cudaError_t err = walk_shape<kPair>(gh, gw, C, &grid, &threads);
   if (err != cudaSuccess) return err;
-  force_kernel<kTail><<<dim3(gw, gh), rps::block_threads(C), shmem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const size_t shmem = 6 * kWindowCells<kPair> * static_cast<size_t>(C) * sizeof(float) +
+                       64 * sizeof(int);
+  err = set_shmem(reinterpret_cast<const void*>(force_kernel<kPair, kTail>), shmem);
+  if (err != cudaSuccess) return err;
+  force_kernel<kPair, kTail><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       px, py, P1, NPn, vx, vy, NPo, npx, npy, o0, o1, o2, o3, gh, gw, C, k);
   return cudaGetLastError();
 }
@@ -219,14 +337,8 @@ cudaError_t launch_force(const float* px, const float* py, const float* P1,
 extern "C" int rps_density(const float* px, const float* py, float* rho, float* rhon,
                            int gh, int gw, int C, float h, float dnorm, float nnorm,
                            void* stream) {
-  if (C < 1 || C > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = 2 * 9 * static_cast<size_t>(C) * sizeof(float) + 32 * sizeof(int);
-  cudaError_t err = set_shmem(reinterpret_cast<const void*>(density_kernel), shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  density_kernel<<<dim3(gw, gh), rps::block_threads(C), shmem,
-                   static_cast<cudaStream_t>(stream)>>>(px, py, rho, rhon, gh, gw, C,
-                                                         h, dnorm, nnorm);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_density<false>(px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm, stream));
 }
 
 // Walk planes px/py (deferred slots parked), P1/NPn/vx/vy; own-only NPo and the
@@ -240,9 +352,9 @@ extern "C" int rps_force_integrated(const float* px, const float* py, const floa
                                     float x_min, float x_max, float y_min, float y_max,
                                     float damp, void* stream) {
   const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
-  return static_cast<int>(launch_force<true>(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                                             out_px, out_py, out_vx, out_vy, gh, gw,
-                                             C, k, stream));
+  return static_cast<int>(launch_force<false, true>(
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
+      C, k, stream));
 }
 
 // K3b: the same inputs without npx/npy.  Outputs: the raw fx, fy, fvx, fvy.
@@ -251,7 +363,39 @@ extern "C" int rps_force(const float* px, const float* py, const float* P1,
                          const float* NPo, float* fx, float* fy, float* fvx, float* fvy,
                          int gh, int gw, int C, float h, float eps2, void* stream) {
   const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return static_cast<int>(launch_force<false>(px, py, P1, NPn, vx, vy, NPo, nullptr,
-                                              nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
-                                              stream));
+  return static_cast<int>(launch_force<false, false>(
+      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
+      stream));
+}
+
+// K6: rps_density, rps_force_integrated and rps_force in the pair block shape
+// (same arguments, same outputs).
+extern "C" int rps_pair_density(const float* px, const float* py, float* rho,
+                                float* rhon, int gh, int gw, int C, float h,
+                                float dnorm, float nnorm, void* stream) {
+  return static_cast<int>(
+      launch_density<true>(px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm, stream));
+}
+
+extern "C" int rps_pair_force_integrated(
+    const float* px, const float* py, const float* P1, const float* NPn,
+    const float* vx, const float* vy, const float* NPo, const float* npx,
+    const float* npy, float* out_px, float* out_py, float* out_vx, float* out_vy,
+    int gh, int gw, int C, float h, float eps2, float dt, float vscale, float x_min,
+    float x_max, float y_min, float y_max, float damp, void* stream) {
+  const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
+  return static_cast<int>(launch_force<true, true>(
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
+      C, k, stream));
+}
+
+extern "C" int rps_pair_force(const float* px, const float* py, const float* P1,
+                              const float* NPn, const float* vx, const float* vy,
+                              const float* NPo, float* fx, float* fy, float* fvx,
+                              float* fvy, int gh, int gw, int C, float h, float eps2,
+                              void* stream) {
+  const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return static_cast<int>(launch_force<true, false>(
+      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
+      stream));
 }

@@ -1,8 +1,10 @@
 """The 2D SPH fluid on plane-resident state.
 
 Counterpart of ``rust_particle_system_tpu/models/sph.py`` with
-``backend="pallas"`` and its settle-safe default layout: aspect-1 cells the size
-of the smoothing radius, 128 slots per cell, one cell per slot row.  State is a
+``backend="pallas"``: aspect-1 cells the size of the smoothing radius, with the
+settle-safe default of 128 slots per cell walked one cell per block (K2, K3),
+or the opt-in pair-packed layout of at most 64 slots per cell walked two cells
+per block (K6).  State is a
 :class:`~..ops.cuda.resident.PlaneState` carried across frames and re-binned
 each frame by the lossless rebin; nothing is ever sorted after init.  Renders
 draw the planes through the plane rasterizer (K4) with no binning.
@@ -21,6 +23,7 @@ from ..ops.cuda.resident import (PlaneState, plane_frame, plane_state_from_parti
 from ..ops.grid import GridSpec
 from ..render import RenderSpec, splat
 from ..render.splat_planes import MARGIN, planes_compatible
+from .base import model_device
 
 DEFAULT_CAPACITY = 128
 
@@ -36,21 +39,23 @@ class SPHFluid:
     @classmethod
     def create(cls, n: int = PARTICLE_COUNT, bounds=DEFAULT_BOUNDS,
                cell_size: float | None = None, capacity: int | None = None,
-               device="cuda", render_spec: RenderSpec | None = None) -> "SPHFluid":
+               pack2: bool = False, device="cuda",
+               render_spec: RenderSpec | None = None) -> "SPHFluid":
         """``capacity=None`` takes the settle-safe 128 slots per cell (a settled
-        pool runs ~101 particles per cell under the default parameters).  The
-        default device is the card; there is no silent CPU fallback."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SPHFluid.create: device 'cuda' requested but torch.cuda is not "
-                "available; pass device='cpu' to run the plain PyTorch versions")
+        pool runs ~101 particles per cell under the default parameters) and
+        ignores ``pack2``.  ``capacity=64, pack2=True`` is the pair-packed
+        layout, for states that stay under 64 particles per cell (a uniform
+        scatter; the JAX package's headline configuration).  The default device
+        is the card; there is no silent CPU fallback."""
+        device = model_device(device, "SPHFluid")
         params = make_params(bounds=bounds)
         if cell_size is None:
             # cell size = smoothing radius, as the reference ties them (main.rs:88)
             cell_size = params.smoothing_radius
-        cap = DEFAULT_CAPACITY if capacity is None else int(capacity)
-        grid = GridSpec.from_bounds(bounds, cell_size, cap)
+        if capacity is None:
+            grid = GridSpec.from_bounds(bounds, cell_size, DEFAULT_CAPACITY)
+        else:
+            grid = GridSpec.from_bounds(bounds, cell_size, int(capacity), pack2=pack2)
         return cls(grid=grid, render_spec=render_spec or RenderSpec(),
                    bounds=tuple(float(b) for b in bounds), device=device, n=int(n))
 

@@ -9,4 +9,7 @@ version beside it for CPU tensors; each counts its launches in ``.launches``.
     K3b sph.force_planes                    csrc/sph.cu
     K4  render.splat_planes.raster_planes   csrc/splat_planes.cu (also K10)
     K5  plane_build.cell_planes_aos         csrc/plane_build.cu
+    K6  sph.density_pairs, sph.force_pairs_integrated, sph.force_pairs
+                                            csrc/sph.cu (pair-packed layout)
+    K8  nbody.nbody_accel                   csrc/nbody.cu
 """

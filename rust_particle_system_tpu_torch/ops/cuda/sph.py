@@ -1,7 +1,7 @@
 """SPH neighbourhood walks over ``[gh, gw, C]`` cell planes.
 
-Counterpart of ``rust_particle_system_tpu/ops/pallas/sph.py`` for the classic
-one-cell-per-slot-row layout:
+Counterpart of ``rust_particle_system_tpu/ops/pallas/sph.py``, for the classic
+one-cell-per-slot-row layout and the pair-packed one:
 
 * :func:`density_planes` — kernel K2 (``csrc/sph.cu``), replacing the Pallas
   ``_make_seg_kernel`` + ``_density_update``: (rho, rhon) = norms x (sum v^2,
@@ -15,6 +15,12 @@ one-cell-per-slot-row layout:
 * :func:`force_planes` — kernel K3b, replacing ``_make_seg_kernel`` +
   ``_force_update`` + ``_force_finalize``: the same walk with the raw-sum
   epilogue (fx, fy, fvx, fvy), for the unfused tail (``fuse_tail=False``).
+* :func:`density_pairs`, :func:`force_pairs_integrated`, :func:`force_pairs` —
+  kernel K6, replacing ``_make_seg_kernel`` with ``n_dx=2`` (the pair-packed
+  layout, ``sph_step.py:95-153``): the same three walks and outputs, from
+  blocks that each serve two adjacent cells of a row.  Their plain versions
+  walk the window the TPU walked, B[p] and B[p+1] (cells 2p-1 .. 2p+2, rows
+  r-1 .. r+1), whose extra column adds exact zeros.
 
 Conventions (as in JAX): dead slots and deferred slots carry position
 SENTINEL in the walk planes, so every pair with them weighs exactly 0.  Both
@@ -50,24 +56,35 @@ def _live(x):
     return x < 0.5 * SENTINEL
 
 
-def _windows(planes_fills, r0: int, r1: int, gw: int):
-    """Per plane: the 3x3 neighbourhood of rows r0..r1 as ``[R, gw, 9, C]``
-    (offsets (dy, dx) row-major, ghost cells at the channel fill)."""
+def _window_columns(gw: int, pair: bool, device) -> torch.Tensor:
+    """``[gw, nx]`` padded column indices (2 fill columns on each side) of the
+    window each own cell walks: columns c-1..c+1, or for the pair-packed
+    layout columns 2p-1..2p+2 of cell c's pair p = c // 2."""
+    c = torch.arange(gw, device=device)
+    if pair:
+        return (2 * (c // 2) + 1)[:, None] + torch.arange(4, device=device)
+    return (c + 1)[:, None] + torch.arange(3, device=device)
+
+
+def _windows(planes_fills, r0: int, r1: int, gw: int, pair: bool = False):
+    """Per plane: the neighbour window of rows r0..r1 as ``[R, gw, W, C]``: the
+    3x3 cells (W = 9) or the pair-packed 3x4 (W = 12), offsets row-major,
+    ghost cells at the channel fill."""
     out = []
     for p, fill in planes_fills:
         gh, _, C = p.shape
+        cols = _window_columns(gw, pair, p.device)
         lo, hi = max(r0 - 1, 0), min(r1 + 1, gh)
-        pad = torch.full((r1 - r0 + 2, gw + 2, C), fill, dtype=p.dtype,
+        pad = torch.full((r1 - r0 + 2, gw + 4, C), fill, dtype=p.dtype,
                          device=p.device)
-        pad[lo - (r0 - 1): hi - (r0 - 1), 1: gw + 1] = p[lo:hi]
-        out.append(torch.stack(
-            [pad[dy: dy + r1 - r0, dx: dx + gw] for dy in range(3)
-             for dx in range(3)], dim=2))
+        pad[lo - (r0 - 1): hi - (r0 - 1), 2: gw + 2] = p[lo:hi]
+        out.append(torch.cat([pad[dy: dy + r1 - r0][:, cols] for dy in range(3)],
+                             dim=2))
     return out
 
 
-def _chunk_rows(gw: int, C: int) -> int:
-    return max(1, PLAIN_CHUNK_ELEMS // (gw * C * 9 * C))
+def _chunk_rows(gw: int, C: int, pair: bool) -> int:
+    return max(1, PLAIN_CHUNK_ELEMS // (gw * C * (12 if pair else 9) * C))
 
 
 def _live_slot_bound(px, r0: int, r1: int) -> int:
@@ -82,23 +99,22 @@ def _live_slot_bound(px, r0: int, r1: int) -> int:
     return int(idx.max()) + 1 if idx.numel() else 0
 
 
-def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float):
-    """Plain PyTorch version of K2."""
+def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float,
+                         pair: bool = False):
+    """Plain PyTorch version of K2 (of K6's density walk with ``pair``)."""
     gh, gw, C = px.shape
-    rho = torch.empty_like(px)
-    rhon = torch.empty_like(px)
-    step = _chunk_rows(gw, C)
-    rho.zero_()
-    rhon.zero_()
+    rho = torch.zeros_like(px)
+    rhon = torch.zeros_like(px)
+    step = _chunk_rows(gw, C, pair)
     for r0 in range(0, gh, step):
         r1 = min(gh, r0 + step)
         c = _live_slot_bound(px, r0, r1)
         if c == 0:
             continue
         pxc, pyc = px[..., :c], py[..., :c]
-        nx, ny = _windows([(pxc, SENTINEL), (pyc, SENTINEL)], r0, r1, gw)
+        nx, ny = _windows([(pxc, SENTINEL), (pyc, SENTINEL)], r0, r1, gw, pair)
         ox, oy = pxc[r0:r1, :, :, None, None], pyc[r0:r1, :, :, None, None]
-        dx = nx[:, :, None] - ox  # [R, gw, c(own), 9, c(nbr)]
+        dx = nx[:, :, None] - ox  # [R, gw, c(own), W, c(nbr)]
         dy = ny[:, :, None] - oy
         v = (h - torch.sqrt(dx * dx + dy * dy)).clamp_min(0.0)
         vv = v * v
@@ -109,26 +125,50 @@ def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float):
     return rho, rhon
 
 
+def _launch(entry: str, ins, n_out: int, *scalars):
+    """Launch a walk kernel on ``[gh, gw, C]`` planes: ``ins`` in, ``n_out``
+    new planes out, then the grid shape and ``scalars`` by value."""
+    _lib.require_cuda_planes(*ins)
+    gh, gw, C = ins[0].shape
+    outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
+    fn = getattr(_lib.library(), entry)
+    _lib.check(entry, fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
+                         gh, gw, C, *scalars, _lib.stream()))
+    return outs
+
+
+def density_scalars(params: SimParams) -> tuple:
+    """(h, density norm, near-density norm)."""
+    return (params.smoothing_radius, params.density_kernel_norm,
+            params.near_density_kernel_norm)
+
+
 def density_planes(px, py, params: SimParams):
     """(rho, rhon) ``[gh, gw, C]`` from walk position planes.  Launches K2 for
     CUDA tensors; runs the plain version for CPU tensors."""
-    h = params.smoothing_radius
-    dn, nn = params.density_kernel_norm, params.near_density_kernel_norm
+    scal = density_scalars(params)
     if _lib.dispatch(px) == "plain":
-        return density_planes_plain(px, py, h, dn, nn)
-    _lib.require_cuda_planes(px, py)
-    gh, gw, C = px.shape
-    rho = torch.empty_like(px)
-    rhon = torch.empty_like(px)
-    lib = _lib.library()
-    _lib.check("rps_density", lib.rps_density(
-        px.data_ptr(), py.data_ptr(), rho.data_ptr(), rhon.data_ptr(),
-        gh, gw, C, h, dn, nn, _lib.stream()))
+        return density_planes_plain(px, py, *scal)
+    out = _launch("rps_density", (px, py), 2, *scal)
     density_planes.launches += 1
-    return rho, rhon
+    return out
 
 
 density_planes.launches = 0
+
+
+def density_pairs(px, py, params: SimParams):
+    """:func:`density_planes` in the pair-packed layout: launches K6's density
+    walk for CUDA tensors; runs its plain version for CPU tensors."""
+    scal = density_scalars(params)
+    if _lib.dispatch(px) == "plain":
+        return density_planes_plain(px, py, *scal, pair=True)
+    out = _launch("rps_pair_density", (px, py), 2, *scal)
+    density_pairs.launches += 1
+    return out
+
+
+density_pairs.launches = 0
 
 
 def pressure_terms(rho, rhon, params: SimParams):
@@ -187,15 +227,15 @@ def tail_plain(accs, own, scal):
             torch.where(live, nvx, 0.0), torch.where(live, nvy, 0.0))
 
 
-def _force_walk_plain(planes, scal: tuple, epilogue):
-    """Plain PyTorch version of the K3/K3b walk: the five pair sums over the
-    dense 3x3 window in row chunks, then ``epilogue(accs, own, scal)`` per
+def _force_walk_plain(planes, scal: tuple, epilogue, pair: bool):
+    """Plain PyTorch version of the K3/K3b/K6 force walk: the five pair sums
+    over the dense window in row chunks, then ``epilogue(accs, own, scal)`` per
     chunk.  ``planes`` = (px, py, P1, NPn, vx, vy, NPo, *own-only extras)."""
     px, py, P1, NPn, vx, vy = planes[:6]
     h, eps2 = scal[0], scal[1]
     gh, gw, C = px.shape
     outs = [torch.empty_like(px) for _ in range(4)]
-    step = _chunk_rows(gw, C)
+    step = _chunk_rows(gw, C, pair)
     for r0 in range(0, gh, step):
         r1 = min(gh, r0 + step)
         own = [t[r0:r1] for t in planes]
@@ -205,7 +245,7 @@ def _force_walk_plain(planes, scal: tuple, epilogue):
             nx, ny, nP1, nNPn, nvx, nvy = _windows(
                 [(px[..., :c], SENTINEL), (py[..., :c], SENTINEL), (P1[..., :c], 0.0),
                  (NPn[..., :c], 0.0), (vx[..., :c], 0.0), (vy[..., :c], 0.0)],
-                r0, r1, gw)
+                r0, r1, gw, pair)
             e = lambda t: t[:, :, :c, None, None]
             n = lambda t: t[:, :, None]
             dx = n(nx) - e(own[0])
@@ -229,15 +269,17 @@ def _force_walk_plain(planes, scal: tuple, epilogue):
 
 
 def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                                  scal: tuple):
-    """Plain PyTorch version of K3."""
+                                  scal: tuple, pair: bool = False):
+    """Plain PyTorch version of K3 (of K6's fused walk with ``pair``)."""
     return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo, npx, npy), scal,
-                             tail_plain)
+                             tail_plain, pair)
 
 
-def force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal: tuple):
-    """Plain PyTorch version of K3b."""
-    return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo), scal, finalize_plain)
+def force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal: tuple,
+                       pair: bool = False):
+    """Plain PyTorch version of K3b (of K6's raw walk with ``pair``)."""
+    return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo), scal, finalize_plain,
+                             pair)
 
 
 def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
@@ -249,23 +291,30 @@ def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
     true predicted positions ``npx, npy`` on the own side.  Returns the FINAL
     (px, py, vx, vy) planes.  Launches K3 for CUDA tensors; runs the plain
     version for CPU tensors."""
-    scal = force_scalars(params)
+    ins, scal = (px, py, P1, NPn, vx, vy, NPo, npx, npy), force_scalars(params)
     if _lib.dispatch(px) == "plain":
-        return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx,
-                                             npy, scal)
-    ins = (px, py, P1, NPn, vx, vy, NPo, npx, npy)
-    _lib.require_cuda_planes(*ins)
-    gh, gw, C = px.shape
-    outs = [torch.empty_like(px) for _ in range(4)]
-    lib = _lib.library()
-    _lib.check("rps_force_integrated", lib.rps_force_integrated(
-        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
-        gh, gw, C, *scal, _lib.stream()))
+        return force_planes_integrated_plain(*ins, scal)
+    out = _launch("rps_force_integrated", ins, 4, *scal)
     force_planes_integrated.launches += 1
-    return tuple(outs)
+    return out
 
 
 force_planes_integrated.launches = 0
+
+
+def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                           params: SimParams):
+    """:func:`force_planes_integrated` in the pair-packed layout: launches K6's
+    fused walk for CUDA tensors; runs its plain version for CPU tensors."""
+    ins, scal = (px, py, P1, NPn, vx, vy, NPo, npx, npy), force_scalars(params)
+    if _lib.dispatch(px) == "plain":
+        return force_planes_integrated_plain(*ins, scal, pair=True)
+    out = _launch("rps_pair_force_integrated", ins, 4, *scal)
+    force_pairs_integrated.launches += 1
+    return out
+
+
+force_pairs_integrated.launches = 0
 
 
 def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
@@ -273,19 +322,26 @@ def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
     fvy) planes, fvx/fvy unscaled (the caller applies the viscosity scale).
     Same inputs as :func:`force_planes_integrated` without ``npx, npy``.
     Launches K3b for CUDA tensors; runs the plain version for CPU tensors."""
-    scal = force_scalars(params)
+    ins, scal = (px, py, P1, NPn, vx, vy, NPo), force_scalars(params)
     if _lib.dispatch(px) == "plain":
-        return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal)
-    ins = (px, py, P1, NPn, vx, vy, NPo)
-    _lib.require_cuda_planes(*ins)
-    gh, gw, C = px.shape
-    outs = [torch.empty_like(px) for _ in range(4)]
-    lib = _lib.library()
-    _lib.check("rps_force", lib.rps_force(
-        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
-        gh, gw, C, scal[0], scal[1], _lib.stream()))
+        return force_planes_plain(*ins, scal)
+    out = _launch("rps_force", ins, 4, *scal[:2])
     force_planes.launches += 1
-    return tuple(outs)
+    return out
 
 
 force_planes.launches = 0
+
+
+def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
+    """:func:`force_planes` in the pair-packed layout: launches K6's raw walk
+    for CUDA tensors; runs its plain version for CPU tensors."""
+    ins, scal = (px, py, P1, NPn, vx, vy, NPo), force_scalars(params)
+    if _lib.dispatch(px) == "plain":
+        return force_planes_plain(*ins, scal, pair=True)
+    out = _launch("rps_pair_force", ins, 4, *scal[:2])
+    force_pairs.launches += 1
+    return out
+
+
+force_pairs.launches = 0

@@ -38,7 +38,7 @@ class GridSpec:
     gh: int  # grid height in cells
     capacity: int  # max particles per cell
     cell_w: float = 0.0  # cell width; 0 means "== cell_size"
-    pack2: bool = False  # pair-packed kernel layout (not ported yet)
+    pack2: bool = False  # pair-packed walk layout (kernel K6), capacity <= 64
 
     @property
     def cell_width(self) -> float:

@@ -1,16 +1,19 @@
-"""Command-line harness for the SPH fluid.
+"""Command-line harness: run any model family, render its final frame, save
+and resume checkpoints.
 
-Counterpart of ``rust_particle_system_tpu/runtime/cli.py`` for the ported main
-path:
+Counterpart of ``rust_particle_system_tpu/runtime/cli.py``:
 
     python -m rust_particle_system_tpu_torch.runtime.cli --n 50000 --frames 300 \\
         --set gravity=400 --render out.png --stats
+    python -m rust_particle_system_tpu_torch.runtime.cli --model nbody --n 16384 \\
+        --frames 100 --render nbody.png
     python -m rust_particle_system_tpu_torch.runtime.cli --device cpu --n 2000 \\
         --frames 20 --resume jax_checkpoint.npz --save state.npz
 
-``--resume`` loads a PlaneState checkpoint written by the JAX package's
-``runtime/checkpoint.save`` (see ``interop.py``); ``--save`` writes one that it
-reads back.  ``--render`` writes the final frame as an sRGB PNG.
+``--resume`` loads a checkpoint written by the JAX package's
+``runtime/checkpoint.save`` for the same model family (see ``interop.py``);
+``--save`` writes one that it reads back.  ``--render`` writes the final frame
+as an sRGB PNG.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import time
 import torch
 
 from .. import interop
-from ..models.sph import SPHFluid
+from ..models import MODEL_FAMILIES
+from ..ops.cuda.resident import PlaneState
 from ..render import to_srgb_u8
 from ..utils.png import write_png
 from .simulation import Simulation
@@ -32,9 +36,15 @@ NOT_PORTED = {
 }
 
 
+def build_model(name: str, n: int, device: str):
+    if name == "sph":
+        return MODEL_FAMILIES["sph"].create(n=n, device=device)
+    return MODEL_FAMILIES[name].create(device=device)
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="SPH fluid on PyTorch + CUDA")
-    ap.add_argument("--model", choices=["sph"], default="sph")
+    ap = argparse.ArgumentParser(description="Particle simulation on PyTorch + CUDA")
+    ap.add_argument("--model", choices=sorted(MODEL_FAMILIES), default="sph")
     ap.add_argument("--n", type=int, default=50_000)
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -44,9 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stats", action="store_true",
                     help="validate invariants and print state statistics at the end")
     ap.add_argument("--resume", default=None,
-                    help="load a PlaneState checkpoint (.npz, JAX layout) first")
+                    help="load a checkpoint of this model (.npz, JAX layout) first")
     ap.add_argument("--save", default=None,
-                    help="write the final PlaneState checkpoint (.npz, JAX layout) here")
+                    help="write the final checkpoint (.npz, JAX layout) here")
     ap.add_argument("--render", default=None, help="write the final frame (PNG) here")
     for flag in NOT_PORTED:
         ap.add_argument(f"--{flag}", default=None, help="not yet ported")
@@ -57,15 +67,22 @@ def main(argv=None) -> int:
             print(f"--{flag} is not yet ported ({where})", file=sys.stderr)
             return 2
 
-    model = SPHFluid.create(n=args.n, device=args.device)
+    model = build_model(args.model, args.n, args.device)
     sim = Simulation(model, n=args.n, seed=args.seed)
     if args.resume:
         state, params = interop.load_npz(args.resume, device=model.device)
-        grid = model.grid
-        if tuple(state.px.shape) != (grid.gh, grid.gw, grid.capacity):
-            raise SystemExit(
-                f"checkpoint planes {tuple(state.px.shape)} do not match this "
-                f"model's grid {(grid.gh, grid.gw, grid.capacity)}")
+        if isinstance(state, PlaneState) != isinstance(sim.state, PlaneState):
+            raise SystemExit(f"{args.resume} holds a {type(state).__name__}; the "
+                             f"{args.model} model runs a {type(sim.state).__name__}")
+        if params is not None and type(params) is not type(sim.params):
+            raise SystemExit(f"{args.resume} holds {type(params).__name__}; the "
+                             f"{args.model} model takes {type(sim.params).__name__}")
+        if isinstance(state, PlaneState):
+            grid = model.grid
+            if tuple(state.px.shape) != (grid.gh, grid.gw, grid.capacity):
+                raise SystemExit(
+                    f"checkpoint planes {tuple(state.px.shape)} do not match this "
+                    f"model's grid {(grid.gh, grid.gw, grid.capacity)}")
         sim.state, sim.n = state, state.n
         if params is not None:
             sim.params = params
@@ -85,7 +102,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     rate = args.frames * sim.n / max(elapsed, 1e-9)
-    print(f"sph: {args.frames} frames x {sim.n} particles on {model.device} in "
+    print(f"{args.model}: {args.frames} frames x {sim.n} particles on {model.device} in "
           f"{elapsed:.2f}s ({rate:,.0f} particle-steps/s, incl. kernel build)")
     if args.stats:
         print(sim.stats())

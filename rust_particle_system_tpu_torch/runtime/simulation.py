@@ -4,14 +4,16 @@ Counterpart of ``rust_particle_system_tpu/runtime/simulation.py``.  PyTorch runs
 eagerly, so the driver is a plain host loop: each frame enqueues its kernels on
 the current stream and returns without waiting for the card.  ``update_params``
 is the egui-slider analog (`src/parameter_gui.rs:78-103`): the next frame
-simply passes the new scalars by value.
+simply passes the new scalars by value.  Any model family drives through it:
+the SPH fluid's state is a ``PlaneState``, the others' a ``ParticleState``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.params import with_smoothing_radius
+from ..core.params import SimParams, with_smoothing_radius
+from ..ops.cuda.resident import PlaneState
 from ..ops.grid import build_grid
 
 # Tunable-parameter guardrails, mirroring the reference's egui slider ranges
@@ -47,6 +49,8 @@ class Simulation:
     """Host-side wrapper: model + live-tunable params + device state."""
 
     def __init__(self, model, n: int | None = None, seed: int = 0, params=None):
+        """``n`` defaults to the model's own count (``SPHFluid.n``); the other
+        model families take it here."""
         self.model = model
         self.n = int(model.n if n is None else n)
         self.params = params if params is not None else model.default_params()
@@ -55,7 +59,7 @@ class Simulation:
 
     def update_params(self, **kwargs):
         check_param_ranges(**kwargs)
-        if "smoothing_radius" in kwargs:
+        if "smoothing_radius" in kwargs and isinstance(self.params, SimParams):
             radius = float(kwargs.pop("smoothing_radius"))
             grid = self.model.grid
             if radius > min(grid.cell_size, grid.cell_width):
@@ -86,8 +90,11 @@ class Simulation:
         return self.model.render(self.state, self.params, camera=camera)
 
     def particle_state(self):
-        """The current state as live rows in original-id order (lost rows
-        trimmed)."""
+        """The current state as a ParticleState: plane states convert to live
+        rows in original-id order (lost rows trimmed); particle states are
+        returned as they are."""
+        if not isinstance(self.state, PlaneState):
+            return self.state
         full = self.state.to_particle_state(self.params)
         n_live = self.n - int(self.state.lost)
         return type(full)(pos=full.pos[:n_live], vel=full.vel[:n_live],
@@ -96,14 +103,16 @@ class Simulation:
 
     def stats(self) -> dict:
         """Validate the current state and return summary statistics; raises
-        ValueError on violated invariants, including any lost particle."""
+        ValueError on violated invariants.  Plane states also report the grid
+        occupancy and ``lost``, and raise on any lost particle."""
         from .debug import validate_state
 
-        lost = int(self.state.lost)
         pstate = self.particle_state()
         out = validate_state(pstate, self.params)
-        spec = self.model.grid
-        grid = build_grid(spec, pstate.pos)
+        if not isinstance(self.state, PlaneState):
+            return out
+        lost = int(self.state.lost)
+        grid = build_grid(self.model.grid, pstate.pos)
         counts = (grid.starts[1:] - grid.starts[:-1]).cpu()
         used = counts > 0
         out.update({

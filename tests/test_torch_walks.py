@@ -2,12 +2,14 @@
 with the frame tail (K3's plain version), against the JAX Pallas walks in
 interpret mode.
 
-Only the f32 summation order differs, so the bars are the JAX tests' own:
-density rtol 1e-5 on live slots; positions rtol/atol 1e-4 and velocities
-rtol 1e-4 / atol 1e-2 (tests/test_pallas_sph.py:38-40).  Deferred and dead
-slots do not depend on the walk sums and must match exactly.
+The last case runs the pair-packed layout (K6's plain version) against the JAX
+pack2 walk.  Only the f32 summation order differs, so the bars are the JAX
+tests' own: density rtol 1e-5 on live slots; positions rtol/atol 1e-4 and
+velocities rtol 1e-4 / atol 1e-2 (tests/test_pallas_sph.py:38-40).  Deferred
+and dead slots do not depend on the walk sums and must match exactly.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -101,8 +103,23 @@ def test_force_walk_with_tail_matches_jax(rng, capacity, coincident):
         np.testing.assert_array_equal(g[~live | defer], w[~live | defer])
 
 
-def test_pack2_layout_not_ported():
-    spec = GridSpec.from_bounds((-27.0, 27.0, -18.0, 18.0), 9.0, 64, pack2=True)
-    z = torch.zeros((spec.gh, spec.gw, 64))
-    with pytest.raises(NotImplementedError):
-        _forces_from_cells(z, z, z, z, z, z, spec, make_params())
+def test_pack2_force_walk_matches_jax_at_c16(rng):
+    """The pair-packed walk (K6's plain version) at C=16 on an odd-width grid
+    (gw=21: the last pair holds a phantom cell) against the JAX pack2 walk."""
+    js, ts, bounds, npx, npy, vx, vy = _state(rng, 16)
+    js = dataclasses.replace(js, pack2=True)
+    ts = dataclasses.replace(ts, pack2=True)
+    assert ts.gw % 2 == 1
+    defer = _defer(js, npx, npy)
+    fpx = np.where(defer, SENTINEL, npx).astype(np.float32)
+    fpy = np.where(defer, SENTINEL, npy).astype(np.float32)
+    jp = jmake_params(bounds=bounds, gravity=300.0)
+    want = _jax_forces(js)(*(jnp.asarray(a) for a in (fpx, fpy, vx, vy)), jp,
+                           (jnp.asarray(npx), jnp.asarray(npy)))
+    got = _forces_from_cells(*(torch.from_numpy(a) for a in (fpx, fpy, vx, vy, npx, npy)),
+                             ts, make_params(bounds=bounds, gravity=300.0))
+    live = npx < 0.5 * SENTINEL
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.numpy(), np.asarray(w)
+        np.testing.assert_allclose(g[live], w[live], rtol=1e-4, atol=1e-4 if i < 2 else 1e-2)
+        np.testing.assert_array_equal(g[~live | defer], w[~live | defer])
