@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--mesh]
 
 Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
-(nvcc) and PyTorch; it imports nothing of JAX.  Phases, one line each:
+(nvcc) and PyTorch; it imports nothing of JAX.  ``--mesh`` runs phases 0 and 1
+and the mesh worlds of phase 3 alone; on a host with several cards its NCCL
+world then has one rank per card (halos over NVLink).  Phases, one line each:
 
   0  the device (name, and nvidia-smi's name and power limit);
   1  build every kernel from csrc/ (seconds);
@@ -12,7 +14,10 @@ Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
      main-path shape (default 1920x1080 bounds, 9-unit cells: gw=214, gh=121,
      C=128) from a 1M-particle uniform state after a few live frames:
      K5 and K1 bit-equal (K1 also on a state with air rows, and at C=16 and
-     C=64 on a small grid); K2, K3 and K3b at the stated tolerances; the
+     C=64 on a small grid); K7 on each of 4 bands of the 1M state on the
+     grid padded to 124 rows (and with air rows across a band boundary, and
+     8 bands of one row on a small grid) bit-equal to K1's rows and to its
+     plain version; K2, K3 and K3b at the stated tolerances; the
      unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
      the 1080p image of the stepped state (sum rule, given colours, radius 2)
      and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
@@ -40,6 +45,15 @@ Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
      pack2_unfused  plane_frame(fuse_tail=False) on that model (K6's raw walk);
      nbody, flow, attractor  runtime.cli.main(--model ... --render
             build/chip_smoke_<model>.png --stats); nbody launches K8;
+     mesh_gloo  the band-sharded step (parallel/) in a world of 4 spawned
+            ranks on the one card over gloo (halos staged through the host):
+            1M C=128 on 4 x 31 rows, 6 frames, 2 with fuse_tail=False (K3b),
+            1 make_plane_sharded_frame with its 1080p image; lost 0 and live
+            exact after every frame; the gathered planes bit-equal to the
+            single-device plane_step, the image within 2.5e-2 of
+            render_plane_state; K7 and the walks launched, K1 not;
+     mesh_nccl  the same at 1M in an NCCL world of one rank per card;
+     mesh_pack2  the same, pair-packed C=64 at 200k over 4 gloo ranks (K6);
   4  ms per frame, CUDA events: 1M uniform C=128 (the step, the render alone,
      step_and_render); 1M uniform pair-packed C=64 against classic C=64; the
      N-body at 16,384, the flow field at 1M, the attractor at 65,536.
@@ -204,9 +218,161 @@ def uniform_plane_state(torch, spec, n: int, seed: int):
     return plane_state_from_particles(make_state(lo + u * (hi - lo)), spec)
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by its row key (each counts its
+    launches in ``.launches``)."""
+    from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel
+    from rust_particle_system_tpu_torch.ops.cuda.plane_build import cell_planes_aos
+    from rust_particle_system_tpu_torch.ops.cuda.rebin import rebin_planes, rebin_planes_band
+    from rust_particle_system_tpu_torch.ops.cuda.sph import (
+        density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
+        force_planes_integrated)
+    from rust_particle_system_tpu_torch.render.splat_planes import raster_planes
+
+    return {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
+            "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
+            "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
+            "K7": rebin_planes_band, "K8": nbody_accel}
+
+
+def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
+    """(grid, params, whole PlaneState) of n uniform particles (numpy, from
+    ``seed``) on the default grid padded to ``n_bands``, past the warm-up:
+    C=128 under gravity 400, or pair-packed C=64 under gravity 300."""
+    import numpy as np
+    import torch
+
+    from rust_particle_system_tpu_torch.core.params import make_params
+    from rust_particle_system_tpu_torch.core.state import make_state
+    from rust_particle_system_tpu_torch.ops.cuda import resident as R
+    from rust_particle_system_tpu_torch.parallel import make_shard_spec
+
+    spec = make_shard_spec(BOUNDS, 9.0, capacity, n_bands, pack2=pack2)
+    params = make_params(bounds=BOUNDS, gravity=300.0 if pack2 else 400.0)
+    u = np.random.default_rng(seed).random((n, 2), dtype=np.float32)
+    lo, hi = np.float32([BOUNDS[0], BOUNDS[2]]), np.float32([BOUNDS[1], BOUNDS[3]])
+    pos = torch.as_tensor(lo + u * (hi - lo), device=device)
+    whole = R.plane_state_from_particles(make_state(pos), spec)
+    require(int(whole.lost) == 0, f"{n} particles did not fit the grid")
+    return spec, params, dataclasses.replace(whole, frame=params.shader_delay)
+
+
+def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: int,
+              render: bool, seed: int) -> dict:
+    """One band of a sharded world (run by run_bands, one process per band):
+    the whole n-particle uniform state on the grid padded to the bands, built
+    alike on every rank from ``seed``; then, with the launch counts set to 0,
+    ``frames`` sharded steps, ``unfused`` more with fuse_tail=False and, with
+    ``render``, one sharded frame with its 1080p image, the diagnostics read
+    after each (lost 0, live count exact).  Band 0 then holds the gathered
+    planes to the single-device plane_step from the same state, bit for bit,
+    and the image to render_plane_state of it at atol 2.5e-2."""
+    import torch
+
+    from rust_particle_system_tpu_torch.ops.cuda import resident as R
+    from rust_particle_system_tpu_torch.parallel import (
+        check_plane_diags, gather_plane_state, make_plane_sharded_frame,
+        make_plane_sharded_step, shard_plane_state)
+    from rust_particle_system_tpu_torch.render import RenderSpec
+
+    require("jax" not in sys.modules, "a rank imported jax")
+    spec, params, whole = band_state(n, capacity, pack2, mesh.size, seed, mesh.device)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    slab = shard_plane_state(whole, mesh)
+    ms, render_ms = [], None
+    for fuse_tail, count in ((True, frames), (False, unfused)):
+        step = make_plane_sharded_step(spec, mesh, fuse_tail=fuse_tail)
+        for _ in range(count):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slab, diags = step(slab, params)
+            check_plane_diags(diags, n)  # reads the diagnostics back
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if render:
+        rs = RenderSpec()
+        frame = make_plane_sharded_frame(spec, mesh, rs, BOUNDS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slab, image, diags = frame(slab, params)
+        check_plane_diags(diags, n)
+        render_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    out = {"launches": {k: fn.launches for k, fn in counters.items()},
+           "ms_per_frame": ms, "ms_frame_with_image": render_ms,
+           "device": str(mesh.device), "rows": spec.gh // mesh.size}
+    got = gather_plane_state(slab, mesh)
+    require(int(got.lost) == 0 and int(got.live.sum()) == n, "the sharded run lost particles")
+    if mesh.rank:
+        return out
+    ref = whole
+    for fuse_tail, count in ((True, frames), (False, unfused), (True, int(render))):
+        for _ in range(count):
+            ref = R.plane_step(ref, params, spec, fuse_tail=fuse_tail)
+    require(got.frame == ref.frame and all(
+        torch.equal(getattr(got, f), getattr(ref, f)) for f in ("px", "py", "vx", "vy", "idsf")),
+        f"{mesh.size} bands ({mesh.backend}): the gathered planes differ from the "
+        "single-device plane_step")
+    if render:
+        want = R.render_plane_state(ref, params, spec, rs, bounds_static=BOUNDS)
+        require(tuple(image.shape) == (1080, 1920, 4) and close(image, want, 0.0, 2.5e-2),
+                "the sharded frame's image differs from render_plane_state beyond 2.5e-2")
+        out["image_err"] = max_abs(image, want)
+    return out
+
+
+def mesh_worlds(paths: dict, card: str) -> dict:
+    """The band-sharded mesh's worlds of spawned ranks (parallel.run_bands):
+    4 ranks over gloo on card 0 (1M C=128, and pair-packed 200k), and one
+    rank per card over NCCL (1M).  Each rank counts its own launches, set to 0
+    just before its path; ``paths`` gets the sums over the ranks.  Returns
+    each world's timings.  gloo stages every halo and all_reduce through the
+    host: its times are not NVLink times."""
+    import torch
+
+    from rust_particle_system_tpu_torch.parallel import run_bands
+
+    mesh_ms = {}
+    for label, n_bands, backend, margs in (
+            ("mesh_gloo", 4, "gloo", (N_1M, 128, False, 6, 2, True, 21)),
+            ("mesh_nccl", torch.cuda.device_count(), "nccl",
+             (N_1M, 128, False, 6, 2, True, 22)),
+            ("mesh_pack2", 4, "gloo", (200_000, 64, True, 6, 2, False, 23))):
+        t0 = time.perf_counter()
+        res = run_bands(mesh_rank, n_bands, backend, "cuda", timeout=400.0, args=margs)
+        world_s = time.perf_counter() - t0
+        launches = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+        paths[label] = launches
+        frames = margs[3] + margs[4] + int(margs[5])
+        walks = ("K6d", "K6f", "K6r") if margs[2] else ("K2", "K3", "K3b")
+        require(launches["K7"] == n_bands * frames and launches["K1"] == 0
+                and all(launches[k] > 0 for k in walks)
+                and launches["K4"] == n_bands * int(margs[5]),
+                f"{label}: the sharded path did not run K7 and its walks alone: {launches}")
+        ms = [max(r["ms_per_frame"][i] for r in res) for i in range(margs[3] + margs[4])]
+        mesh_ms[label] = {"transport": backend, "bands": n_bands, "rows": res[0]["rows"],
+                          "n": margs[0], "ms_per_frame": ms,
+                          "ms_frame_with_image": res[0]["ms_frame_with_image"],
+                          "world_s": world_s}
+        err = res[0].get("image_err")
+        print(f"phase 3: {label}: {n_bands} band(s) x {res[0]['rows']} rows over {backend} "
+              f"({'host-staged halos, ' if backend == 'gloo' else ''}on "
+              f"{', '.join(sorted({r['device'] for r in res}))}), {margs[0]} particles, "
+              f"{margs[3]} + {margs[4]} unfused frames{' + 1 with its image' if margs[5] else ''}: "
+              f"lost 0, live exact each frame; gathered planes bit-equal to the single-device "
+              f"plane_step{f'; image within 2.5e-2 ({err:.2e})' if err is not None else ''}; "
+              f"launches {launches}; ms/frame ({backend}) {[round(m, 3) for m in ms]}, "
+              f"with image {res[0]['ms_frame_with_image']}; world {world_s:.1f} s [{card}]")
+    return mesh_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the results here (JSON)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run only the device, build and band-sharded mesh phases "
+                         "(its NCCL world takes every card)")
     args = ap.parse_args()
 
     import numpy as np
@@ -227,7 +393,7 @@ def main() -> int:
     from rust_particle_system_tpu_torch.ops.cuda.plane_build import (
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
-        rebin_planes, rebin_planes_plain)
+        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain)
     from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
@@ -237,6 +403,7 @@ def main() -> int:
         force_planes_integrated_plain, force_planes_plain, force_scalars,
         pressure_terms)
     from rust_particle_system_tpu_torch.ops.grid import GridSpec, build_grid
+    from rust_particle_system_tpu_torch.parallel import make_shard_spec
     from rust_particle_system_tpu_torch.render import RenderSpec, to_srgb_u8
     from rust_particle_system_tpu_torch.render.splat_planes import (
         FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
@@ -263,6 +430,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 1: kernels built from {len(_lib.sources())} sources in "
           f"{build_s:.2f} s -> {_lib.library_path()}")
+    device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+    if args.mesh:
+        paths = {}
+        print(json.dumps({"mesh": mesh_worlds(paths, card), "paths": paths}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
 
     # ---------------- phase 2: kernels vs plain, main-path shape ----------------
     spec = GridSpec.from_bounds(BOUNDS, 9.0, 128)
@@ -339,6 +512,59 @@ def main() -> int:
            cuda_ms(lambda: rebin_planes_plain(rin, spec), 5),
            nbytes(*rin, *a, ca), 0)
     print("phase 2: K1 bit-equal (1M stepped, air rows, C=16 and C=64 x drift 0.4/0.9/1.8)")
+
+    # K7: the 1M state on the grid padded to 4 bands (gh 121 -> 124, 31 rows
+    # each), a few frames in; each band's K7 (ghost rows from the neighbour
+    # bands, zeros past the grid's edges) against K1's rows of the whole grid
+    # and against its plain version, with and without air rows; then 8 bands
+    # of one row on a small grid.
+    def check_k7(label, planes, sp, n_bands):
+        full, cfull = rebin_planes(planes, sp)
+        Rb = sp.gh // n_bands
+        zeros = torch.zeros_like(planes[0][0])
+        row = lambda c, r: planes[c][r] if 0 <= r < sp.gh else zeros
+        calls, err = [], 0.0
+        for b in range(n_bands):
+            r0 = b * Rb
+            args7 = ([p[r0:r0 + Rb] for p in planes], sp, fills, r0,
+                     [row(c, r0 - 2) for c in (0, 1)],
+                     [row(c, r0 - 1) for c in range(5)], [row(c, r0 + Rb) for c in range(5)])
+            x, cx = rebin_planes_band(*args7)
+            y, cy = rebin_planes_band_plain(*args7)
+            rows_b = slice(r0, r0 + Rb)
+            require(all(torch.equal(p, q) and torch.equal(p, f[rows_b])
+                        for p, q, f in zip(x, y, full))
+                    and torch.equal(cx, cy) and torch.equal(cx, cfull[r0 * sp.gw:(r0 + Rb) * sp.gw]),
+                    f"K7 band {b} of {n_bands} ({label}) differs from K1's rows or its plain "
+                    "version")
+            calls.append((args7, x, cx))
+            err = max([err] + [max_abs(p, q) for p, q in zip(x, y)])
+        return calls, err
+
+    spec7 = make_shard_spec(BOUNDS, 9.0, 128, 4)
+    require((spec7.gw, spec7.gh) == (214, 124), f"unexpected padded grid {spec7}")
+    ps7 = R.plane_state_from_particles(port.make_state(pos), spec7)
+    ps7 = dataclasses.replace(ps7, frame=params.shader_delay)
+    for _ in range(3):
+        ps7 = R.plane_step(ps7, params, spec7)
+    rin7 = R.predict_planes(ps7, params)
+    k7_calls, k7_err = check_k7("1M stepped", rin7, spec7, 4)
+    air7 = [p.clone() for p in rin7]
+    for c, p in enumerate(air7):
+        p[29:33] = 1e6 if c < 2 else 0.0  # air across the boundary of bands 0 and 1
+    check_k7("air rows", air7, spec7, 4)
+    small8 = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=8, capacity=16)
+    for drift in (0.4, 0.9, 1.8):
+        check_k7(f"R=1, drift {drift}", demo_planes(torch, small8, 0.7, drift, seed=80,
+                                                    device="cuda"), small8, 8)
+    args7, out7, cnt7 = k7_calls[1]  # an inner band
+    record("K7", "K7 band rebin (31 of 124 rows)", "rust_particle_system_tpu_torch/csrc/rebin.cu",
+           "rust_particle_system_tpu/ops/pallas/rebin.py:765", k7_err,
+           cuda_ms(lambda: rebin_planes_band(*args7), 20),
+           cuda_ms(lambda: rebin_planes_band_plain(*args7), 5),
+           nbytes(*args7[0], *args7[4], *args7[5], *args7[6], *out7, cnt7), 0)
+    print("phase 2: K7 bit-equal to K1's rows and to its plain version (1M on 4 x 31 rows, "
+          "air rows across a band boundary, 8 bands x 1 row x drift 0.4/0.9/1.8)")
 
     npx, npy, nvx0, nvy0, _ = a
 
@@ -692,10 +918,7 @@ def main() -> int:
               f"{max_abs(st_c.vel.cpu(), st_h.vel):.2e}")
 
     # ---------------- phase 3: the user entry points ----------------
-    kernels = {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
-               "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
-               "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
-               "K8": nbody_accel}
+    kernels = kernel_counters()
     paths = {}
 
     def reset():
@@ -862,8 +1085,11 @@ def main() -> int:
         print(f"phase 3: cli --model {m} --n {n} --frames {frames} --render {png_m.name} "
               f"--stats ok ({lit} px lit); launches {launches}")
 
+    mesh_ms = mesh_worlds(paths, card)
+
     for k in ("K1", "K2", "K3", "K4", "K5"):
         rows[k]["launches"] = paths["scene"][k]
+    rows["K7"]["launches"] = paths["mesh_gloo"]["K7"]
     rows["K3b"]["launches"] = paths["unfused"]["K3b"]
     rows["K10"]["launches"] = paths["v1"]["K4"]
     rows["K6d"]["launches"] = paths["pack2"]["K6d"]
@@ -924,7 +1150,7 @@ def main() -> int:
         require(bool(torch.isfinite(simm.state.pos).all()), f"{m} frames not finite")
     print(f"phase 4: ms/frame {json.dumps(ms_models)} (nbody n={N_NBODY}, flow n={N_1M}, "
           f"attractor n=65536) [{card}]")
-    order = ("K5", "K1", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r", "K8")
+    order = ("K5", "K1", "K7", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r", "K8")
     for k in order:
         r = rows[k]
         print(f"phase 4: {r['name']}: {r['ms']:.3f} ms kernel vs {r['plain_ms']:.3f} ms "
@@ -938,10 +1164,10 @@ def main() -> int:
             "ms_per_frame_1m": ms1m, "ms_render_1m": ms_render,
             "ms_step_and_render_1m": ms_fused, "scene_300_s": scene_s,
             "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms,
-            "ms_per_frame_models": ms_models, "paths": paths}, indent=1))
+            "ms_per_frame_models": ms_models, "ms_mesh": mesh_ms, "paths": paths},
+            indent=1))
     print(json.dumps(result))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -13,7 +13,12 @@ imports nothing of JAX.  The configurations ``chip_smoke.py`` times:
   * 1M particles, uniform, pair-packed C=64 (the JAX package's headline
     configuration, bench.py:387-389), the step, restarted every 40 frames;
   * the N-body at 16,384, the flow field at 1M and the attractor at 65,536
-    particles, a frame each through ``Simulation.run(1)``.
+    particles, a frame each through ``Simulation.run(1)``;
+  * the band-sharded step and the sharded frame with its 1080p image, 1M
+    uniform C=128 on the grid padded to the bands, in a world of 4 ranks on
+    the one card over gloo (halos staged through the host) and of 1 rank
+    over NCCL (``parallel.run_bands``): each rank's own timing, kernel rows
+    and largest host operator rows, under "mesh ...", one entry per rank.
 
 For each case it measures, over ``--frames`` frames each:
 
@@ -68,17 +73,21 @@ def timing(torch, frame, frames: int) -> dict:
     return {"frames": frames, "event_ms": event_ms, "enqueue_ms": enqueue_ms}
 
 
-def kernel_rows(torch, frame, frames: int) -> dict:
-    """busy_ms and the per-kernel rows of ``frames`` profiled calls."""
+def kernel_rows(torch, frame, frames: int, host_rows: int = 0) -> dict:
+    """busy_ms and the per-kernel rows of ``frames`` profiled calls; with
+    ``host_rows``, also that many host operator rows [name, self host ms per
+    frame (the profiler's own cost included), calls per frame], largest
+    first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
             frame()
         torch.cuda.synchronize()
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            host.append([ev.key, ev.self_cpu_time_total / 1e3 / frames, ev.count / frames])
             continue  # operator rows repeat their kernels' time
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -88,7 +97,45 @@ def kernel_rows(torch, frame, frames: int) -> dict:
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"busy_ms": busy_ms, "rows": rows}
+    out = {"busy_ms": busy_ms, "rows": rows}
+    if host_rows:
+        out["host_rows"] = sorted(host, key=lambda r: -r[1])[:host_rows]
+    return out
+
+
+def band_breakdown(mesh, frames: int) -> dict:
+    """One rank of a sharded world: timing and kernel rows of its sharded step
+    and of its sharded frame with the 1080p image, on its band of the 1M
+    uniform C=128 state (chip_smoke.band_state)."""
+    import torch
+
+    from chip_smoke import BOUNDS, N_1M, band_state
+    from rust_particle_system_tpu_torch.parallel import (
+        gather_plane_state, make_plane_sharded_frame, make_plane_sharded_step,
+        shard_plane_state)
+    from rust_particle_system_tpu_torch.render import RenderSpec
+
+    spec, params, whole = band_state(N_1M, 128, False, mesh.size, 7, mesh.device)
+    held = [shard_plane_state(whole, mesh)]
+    step = make_plane_sharded_step(spec, mesh)
+    image_frame = make_plane_sharded_frame(spec, mesh, RenderSpec(), BOUNDS)
+
+    def step_only():
+        held[0], _ = step(held[0], params)
+
+    def with_image():
+        held[0], _, _ = image_frame(held[0], params)
+
+    cases = {"step": step_only, "frame with image": with_image}
+    out = {"rank": mesh.rank, "rows": spec.gh // mesh.size, "transport": mesh.backend}
+    for key, frame in cases.items():
+        out[key] = timing(torch, frame, frames)
+        out[key].update(kernel_rows(torch, frame, frames, host_rows=15))
+        out[key]["idle"] = 1.0 - out[key]["busy_ms"] / out[key]["event_ms"]
+    got = gather_plane_state(held[0], mesh)
+    if int(got.lost) != 0 or int(got.live.sum()) != N_1M:
+        raise RuntimeError("the sharded run lost particles")
+    return out
 
 
 def main() -> int:
@@ -109,6 +156,7 @@ def main() -> int:
     from rust_particle_system_tpu_torch.models.sph import SPHFluid
     from rust_particle_system_tpu_torch.ops.cuda import resident as R
     from rust_particle_system_tpu_torch.ops.grid import GridSpec
+    from rust_particle_system_tpu_torch.parallel import run_bands
     from rust_particle_system_tpu_torch.render import RenderSpec
     from rust_particle_system_tpu_torch.runtime.simulation import Simulation
 
@@ -175,6 +223,10 @@ def main() -> int:
         raise RuntimeError("50k run lost particles")
     if int(held2[0].lost) != 0 or int(held2[0].live.sum()) != N_1M:
         raise RuntimeError("1M pack2 run lost particles")
+    mesh_frames = max(5, args.frames // 5)
+    for n_bands, backend in ((4, "gloo"), (1, "nccl")):
+        out[f"mesh {backend}, {n_bands} band(s), 1M uniform C=128"] = run_bands(
+            band_breakdown, n_bands, backend, "cuda", timeout=600.0, args=(mesh_frames,))
 
     text = json.dumps(out, indent=1)
     if args.out:

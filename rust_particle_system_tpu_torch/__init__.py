@@ -10,6 +10,8 @@ layout mirrors the JAX package, so each module's counterpart has the same name:
     models/    the SPH fluid (plane-resident state, classic or pair-packed
                layout), the N-body, the flow field and the attractor
     render/    the general splat and the plane rasterizer of the fused frame
+    parallel/  the band-sharded mesh: one process per band of cell rows
+               (torch.distributed), its halos, step and rendered frame
     runtime/   host-loop driver, validators, CLI
     utils/     the PNG writer
     interop    state and params to and from the JAX checkpoint layout

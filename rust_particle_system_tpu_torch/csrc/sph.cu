@@ -38,6 +38,14 @@
 //        (a third fewer than the full window).  Each neighbour cell is staged
 //        by 6 blocks instead of 9.
 //
+// Own rows.  A launch walks the own rows [r0, r0 + R) of neighbour planes of
+// gh rows: r0 = 0 and R = gh on the whole grid, or r0 = 1 and R = gh - 2 on a
+// band's slab whose rows 0 and gh - 1 are ghost rows of the neighbour bands
+// (rust_particle_system_tpu/ops/pallas/sph_step.py::_forces_from_cells with
+// its halo, on the band-sharded mesh).  The grid has R block rows, so a ghost
+// row costs its staging by the adjacent own row and nothing else.  The
+// own-side planes (NPo, npx, npy) and the outputs are [R, gw, C].
+//
 // Bound on the H100: arithmetic on the pair loop (one sqrt and one divide per
 // pair in K3), not memory: each block reads its neighbour cells once.  The
 // TPU evaluated all C x 9C slot pairs as dense vector tiles, lane-padded to
@@ -87,25 +95,35 @@ __device__ int stage_live_neighbours(const float* const (&src)[NCH],
 
 // A thread's own slot and the staged neighbour range it walks.
 struct Own {
-  size_t o;     // own slot offset in the planes
+  size_t o;     // own slot offset in the neighbour planes
+  size_t q;     // own slot offset in the own-side planes and the outputs
   int lo, hi;   // staged neighbours [lo, hi)
   bool valid;   // the thread owns a slot of an in-grid cell
 };
+
+// Plane row, offsets and validity of a thread's slot s of cell (r, c).
+__device__ __forceinline__ Own own_slot(int r, int r0, int c, int s, int gw, int C,
+                                        int lo, int hi, bool valid) {
+  return {(static_cast<size_t>(r) * gw + c) * C + s,
+          (static_cast<size_t>(r - r0) * gw + c) * C + s, lo, hi, valid};
+}
 
 // Cells a block stages: its 3x3 window, or a pair's 3x4 window.
 template <bool kPair>
 constexpr int kWindowCells = kPair ? 12 : 9;
 
-// Classic block: cell (r, c) = (blockIdx.y, blockIdx.x), thread s owns slot s.
+// Classic block: cell (r, c) = (r0 + blockIdx.y, blockIdx.x), thread s owns
+// slot s.
 template <int NCH>
 __device__ Own stage_cell(const float* const (&src)[NCH], float* const (&dst)[NCH],
-                          int* scratch, int gh, int gw, int C) {
-  const int c = blockIdx.x, r = blockIdx.y, s = threadIdx.x;
+                          int* scratch, int gh, int r0, int gw, int C) {
+  const int c = blockIdx.x, r = r0 + blockIdx.y, s = threadIdx.x;
   const int m = stage_live_neighbours<NCH>(src, dst, scratch, r, c, gh, gw, C);
-  return {(static_cast<size_t>(r) * gw + c) * C + s, 0, m, s < C};
+  return own_slot(r, r0, c, s, gw, C, 0, m, s < C);
 }
 
-// Pair block (K6): cells (r, 2p) and (r, 2p + 1), p = blockIdx.x; thread t
+// Pair block (K6): cells (r, 2p) and (r, 2p + 1), p = blockIdx.x and
+// r = r0 + blockIdx.y; thread t
 // owns slot t % C of cell 2p + t / C (t >= 2C: ballots only).  The live slots
 // of columns 2p-1 .. 2p+2, rows r-1 .. r+1 are staged column-major (column
 // outer, row inner), two cells per round; col[k] is where window column k
@@ -114,8 +132,8 @@ __device__ Own stage_cell(const float* const (&src)[NCH], float* const (&dst)[NC
 // as empty and owns nothing, like the TPU's dead phantom cell.
 template <int NCH>
 __device__ Own stage_pair(const float* const (&src)[NCH], float* const (&dst)[NCH],
-                          int* scratch, int gh, int gw, int C) {
-  const int p = blockIdx.x, r = blockIdx.y, t = threadIdx.x;
+                          int* scratch, int gh, int r0, int gw, int C) {
+  const int p = blockIdx.x, r = r0 + blockIdx.y, t = threadIdx.x;
   const int half = t / C, s = t - half * C;
   int col[5];
   col[0] = 0;
@@ -145,38 +163,37 @@ __device__ Own stage_pair(const float* const (&src)[NCH], float* const (&dst)[NC
   __syncthreads();
   const int own = half < 2 ? half : 1;
   const int c = 2 * p + own;
-  return {(static_cast<size_t>(r) * gw + c) * C + s, col[own], col[own + 3],
-          half < 2 && c < gw};
+  return own_slot(r, r0, c, s, gw, C, col[own], col[own + 3], half < 2 && c < gw);
 }
 
 template <bool kPair, int NCH>
 __device__ Own stage(const float* const (&src)[NCH], float* const (&dst)[NCH],
-                     int* scratch, int gh, int gw, int C) {
+                     int* scratch, int gh, int r0, int gw, int C) {
   if constexpr (kPair) {
-    return stage_pair<NCH>(src, dst, scratch, gh, gw, C);
+    return stage_pair<NCH>(src, dst, scratch, gh, r0, gw, C);
   } else {
-    return stage_cell<NCH>(src, dst, scratch, gh, gw, C);
+    return stage_cell<NCH>(src, dst, scratch, gh, r0, gw, C);
   }
 }
 
 template <bool kPair>
 __global__ void density_kernel(const float* __restrict__ px, const float* __restrict__ py,
                                float* __restrict__ rho, float* __restrict__ rhon,
-                               int gh, int gw, int C, float h, float dnorm,
+                               int gh, int r0, int gw, int C, float h, float dnorm,
                                float nnorm) {
   extern __shared__ float sm[];
   const int cap = kWindowCells<kPair> * C;
   float* const dst[2] = {sm, sm + cap};
   int* scratch = reinterpret_cast<int*>(sm + 2 * cap);
   const float* const src[2] = {px, py};
-  const Own w = stage<kPair, 2>(src, dst, scratch, gh, gw, C);
+  const Own w = stage<kPair, 2>(src, dst, scratch, gh, r0, gw, C);
   if (!w.valid) return;
 
-  const size_t o = w.o;
+  const size_t o = w.o, q = w.q;
   const float ox = px[o], oy = py[o];
   if (!(ox < kLiveBelow)) {
-    rho[o] = 0.0f;
-    rhon[o] = 0.0f;
+    rho[q] = 0.0f;
+    rhon[q] = 0.0f;
     return;
   }
   const float* sx = dst[0];
@@ -190,8 +207,8 @@ __global__ void density_kernel(const float* __restrict__ px, const float* __rest
     s2 += vv;
     s3 += vv * v;
   }
-  rho[o] = dnorm * s2;
-  rhon[o] = nnorm * s3;
+  rho[q] = dnorm * s2;
+  rhon[q] = nnorm * s3;
 }
 
 struct ForceScalars {
@@ -213,19 +230,19 @@ __global__ void force_kernel(
     const float* __restrict__ NPo, const float* __restrict__ npx,
     const float* __restrict__ npy, float* __restrict__ out_px,
     float* __restrict__ out_py, float* __restrict__ out_vx,
-    float* __restrict__ out_vy, int gh, int gw, int C, ForceScalars k) {
+    float* __restrict__ out_vy, int gh, int r0, int gw, int C, ForceScalars k) {
   extern __shared__ float sm[];
   const int cap = kWindowCells<kPair> * C;
   float* const dst[6] = {sm, sm + cap, sm + 2 * cap, sm + 3 * cap,
                          sm + 4 * cap, sm + 5 * cap};
   int* scratch = reinterpret_cast<int*>(sm + 6 * cap);
   const float* const src[6] = {px, py, P1, NPn, vx, vy};
-  const Own w = stage<kPair, 6>(src, dst, scratch, gh, gw, C);
+  const Own w = stage<kPair, 6>(src, dst, scratch, gh, r0, gw, C);
   if (!w.valid) return;
 
-  const size_t o = w.o;
+  const size_t o = w.o, q = w.q;
   const float ox = px[o], oy = py[o], oP1 = P1[o], oNPn = NPn[o];
-  const float ovx = vx[o], ovy = vy[o], oNPo = NPo[o];
+  const float ovx = vx[o], ovy = vy[o], oNPo = NPo[q];
   const float hh = k.h * k.h;
   const bool walk_live = ox < kLiveBelow;
 
@@ -256,13 +273,13 @@ __global__ void force_kernel(
   fy -= (oP1 + oP1) * k.h + (oNPo + oNPn) * hh;
   const float fvx = Sx - ovx * S, fvy = Sy - ovy * S;
   if constexpr (!kTail) {
-    out_px[o] = fx;
-    out_py[o] = fy;
-    out_vx[o] = fvx;
-    out_vy[o] = fvy;
+    out_px[q] = fx;
+    out_py[q] = fy;
+    out_vx[q] = fvx;
+    out_vy[q] = fvy;
     return;
   }
-  const float onpx = npx[o], onpy = npy[o];
+  const float onpx = npx[q], onpy = npy[q];
   float nvx = ovx + fx * k.dt + fvx * k.vscale;
   float nvy = ovy + fy * k.dt + fvy * k.vscale;
   const bool live = onpx < kLiveBelow;
@@ -274,10 +291,10 @@ __global__ void force_kernel(
   float y2 = onpy + (nvy - ovy) * k.dt;
   bounce(x2, nvx, k.x_min, k.x_max, k.damp);
   bounce(y2, nvy, k.y_min, k.y_max, k.damp);
-  out_px[o] = live ? x2 : rps::kSentinel;
-  out_py[o] = live ? y2 : rps::kSentinel;
-  out_vx[o] = live ? nvx : 0.0f;
-  out_vy[o] = live ? nvy : 0.0f;
+  out_px[q] = live ? x2 : rps::kSentinel;
+  out_py[q] = live ? y2 : rps::kSentinel;
+  out_vx[q] = live ? nvx : 0.0f;
+  out_vy[q] = live ? nvy : 0.0f;
 }
 
 cudaError_t set_shmem(const void* fn, size_t bytes) {
@@ -286,29 +303,30 @@ cudaError_t set_shmem(const void* fn, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Grid and block of a walk: one block per cell (classic) or per cell pair.
+// Grid and block of a walk: one block per own cell (classic) or cell pair.
 template <bool kPair>
-cudaError_t walk_shape(int gh, int gw, int C, dim3* grid, int* threads) {
-  if (C < 1 || C > (kPair ? 512 : 1024)) return cudaErrorInvalidValue;
-  *grid = dim3(kPair ? (gw + 1) / 2 : gw, gh);
+cudaError_t walk_shape(int gh, int r0, int R, int gw, int C, dim3* grid, int* threads) {
+  if (C < 1 || C > (kPair ? 512 : 1024) || r0 < 0 || R < 1 || r0 + R > gh)
+    return cudaErrorInvalidValue;
+  *grid = dim3(kPair ? (gw + 1) / 2 : gw, R);
   *threads = rps::block_threads(kPair ? 2 * C : C);
   return cudaSuccess;
 }
 
 template <bool kPair>
 cudaError_t launch_density(const float* px, const float* py, float* rho, float* rhon,
-                           int gh, int gw, int C, float h, float dnorm, float nnorm,
-                           void* stream) {
+                           int gh, int r0, int R, int gw, int C, float h, float dnorm,
+                           float nnorm, void* stream) {
   dim3 grid;
   int threads;
-  cudaError_t err = walk_shape<kPair>(gh, gw, C, &grid, &threads);
+  cudaError_t err = walk_shape<kPair>(gh, r0, R, gw, C, &grid, &threads);
   if (err != cudaSuccess) return err;
   const size_t shmem = 2 * kWindowCells<kPair> * static_cast<size_t>(C) * sizeof(float) +
                        64 * sizeof(int);
   err = set_shmem(reinterpret_cast<const void*>(density_kernel<kPair>), shmem);
   if (err != cudaSuccess) return err;
   density_kernel<kPair><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm);
+      px, py, rho, rhon, gh, r0, gw, C, h, dnorm, nnorm);
   return cudaGetLastError();
 }
 
@@ -316,29 +334,30 @@ template <bool kPair, bool kTail>
 cudaError_t launch_force(const float* px, const float* py, const float* P1,
                          const float* NPn, const float* vx, const float* vy,
                          const float* NPo, const float* npx, const float* npy,
-                         float* o0, float* o1, float* o2, float* o3, int gh, int gw,
-                         int C, ForceScalars k, void* stream) {
+                         float* o0, float* o1, float* o2, float* o3, int gh, int r0,
+                         int R, int gw, int C, ForceScalars k, void* stream) {
   dim3 grid;
   int threads;
-  cudaError_t err = walk_shape<kPair>(gh, gw, C, &grid, &threads);
+  cudaError_t err = walk_shape<kPair>(gh, r0, R, gw, C, &grid, &threads);
   if (err != cudaSuccess) return err;
   const size_t shmem = 6 * kWindowCells<kPair> * static_cast<size_t>(C) * sizeof(float) +
                        64 * sizeof(int);
   err = set_shmem(reinterpret_cast<const void*>(force_kernel<kPair, kTail>), shmem);
   if (err != cudaSuccess) return err;
   force_kernel<kPair, kTail><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, o0, o1, o2, o3, gh, gw, C, k);
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, o0, o1, o2, o3, gh, r0, gw, C, k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// All planes [gh, gw, C] f32.  rho/rhon: outputs (0 at parked walk slots).
+// Neighbour planes [gh, gw, C] f32, own rows [r0, r0 + R); own-side planes
+// and outputs [R, gw, C].  rho/rhon: outputs (0 at parked walk slots).
 extern "C" int rps_density(const float* px, const float* py, float* rho, float* rhon,
-                           int gh, int gw, int C, float h, float dnorm, float nnorm,
-                           void* stream) {
-  return static_cast<int>(
-      launch_density<false>(px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm, stream));
+                           int gh, int r0, int R, int gw, int C, float h, float dnorm,
+                           float nnorm, void* stream) {
+  return static_cast<int>(launch_density<false>(px, py, rho, rhon, gh, r0, R, gw, C, h,
+                                                dnorm, nnorm, stream));
 }
 
 // Walk planes px/py (deferred slots parked), P1/NPn/vx/vy; own-only NPo and the
@@ -347,55 +366,56 @@ extern "C" int rps_force_integrated(const float* px, const float* py, const floa
                                     const float* NPn, const float* vx, const float* vy,
                                     const float* NPo, const float* npx,
                                     const float* npy, float* out_px, float* out_py,
-                                    float* out_vx, float* out_vy, int gh, int gw, int C,
-                                    float h, float eps2, float dt, float vscale,
-                                    float x_min, float x_max, float y_min, float y_max,
-                                    float damp, void* stream) {
+                                    float* out_vx, float* out_vy, int gh, int r0, int R,
+                                    int gw, int C, float h, float eps2, float dt,
+                                    float vscale, float x_min, float x_max, float y_min,
+                                    float y_max, float damp, void* stream) {
   const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
   return static_cast<int>(launch_force<false, true>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
-      C, k, stream));
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, r0, R,
+      gw, C, k, stream));
 }
 
 // K3b: the same inputs without npx/npy.  Outputs: the raw fx, fy, fvx, fvy.
 extern "C" int rps_force(const float* px, const float* py, const float* P1,
                          const float* NPn, const float* vx, const float* vy,
                          const float* NPo, float* fx, float* fy, float* fvx, float* fvy,
-                         int gh, int gw, int C, float h, float eps2, void* stream) {
+                         int gh, int r0, int R, int gw, int C, float h, float eps2,
+                         void* stream) {
   const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   return static_cast<int>(launch_force<false, false>(
-      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
-      stream));
+      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, r0, R, gw, C,
+      k, stream));
 }
 
 // K6: rps_density, rps_force_integrated and rps_force in the pair block shape
 // (same arguments, same outputs).
 extern "C" int rps_pair_density(const float* px, const float* py, float* rho,
-                                float* rhon, int gh, int gw, int C, float h,
-                                float dnorm, float nnorm, void* stream) {
-  return static_cast<int>(
-      launch_density<true>(px, py, rho, rhon, gh, gw, C, h, dnorm, nnorm, stream));
+                                float* rhon, int gh, int r0, int R, int gw, int C,
+                                float h, float dnorm, float nnorm, void* stream) {
+  return static_cast<int>(launch_density<true>(px, py, rho, rhon, gh, r0, R, gw, C, h,
+                                               dnorm, nnorm, stream));
 }
 
 extern "C" int rps_pair_force_integrated(
     const float* px, const float* py, const float* P1, const float* NPn,
     const float* vx, const float* vy, const float* NPo, const float* npx,
     const float* npy, float* out_px, float* out_py, float* out_vx, float* out_vy,
-    int gh, int gw, int C, float h, float eps2, float dt, float vscale, float x_min,
-    float x_max, float y_min, float y_max, float damp, void* stream) {
+    int gh, int r0, int R, int gw, int C, float h, float eps2, float dt, float vscale,
+    float x_min, float x_max, float y_min, float y_max, float damp, void* stream) {
   const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
   return static_cast<int>(launch_force<true, true>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, gw,
-      C, k, stream));
+      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, r0, R,
+      gw, C, k, stream));
 }
 
 extern "C" int rps_pair_force(const float* px, const float* py, const float* P1,
                               const float* NPn, const float* vx, const float* vy,
                               const float* NPo, float* fx, float* fy, float* fvx,
-                              float* fvy, int gh, int gw, int C, float h, float eps2,
-                              void* stream) {
+                              float* fvy, int gh, int r0, int R, int gw, int C,
+                              float h, float eps2, void* stream) {
   const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   return static_cast<int>(launch_force<true, false>(
-      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, gw, C, k,
-      stream));
+      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, r0, R, gw,
+      C, k, stream));
 }

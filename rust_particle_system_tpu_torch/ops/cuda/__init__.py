@@ -4,6 +4,7 @@ Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; each counts its launches in ``.launches``.
 
     K1  rebin.rebin_planes                  csrc/rebin.cu
+    K7  rebin.rebin_planes_band             csrc/rebin.cu (K1's kernels on a band)
     K2  sph.density_planes                  csrc/sph.cu
     K3  sph.force_planes_integrated         csrc/sph.cu
     K3b sph.force_planes                    csrc/sph.cu

@@ -33,13 +33,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "rps_plane_build": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "rps_rebin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
-    "rps_density": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
-    "rps_force_integrated": [_P] * 13 + [_I, _I, _I] + [_F] * 9 + [_P],
-    "rps_force": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
-    "rps_pair_density": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
-    "rps_pair_force_integrated": [_P] * 13 + [_I, _I, _I] + [_F] * 9 + [_P],
-    "rps_pair_force": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
+    "rps_rebin": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
+    "rps_density": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
+    "rps_force_integrated": [_P] * 13 + [_I] * 5 + [_F] * 9 + [_P],
+    "rps_force": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
+    "rps_pair_density": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
+    "rps_pair_force_integrated": [_P] * 13 + [_I] * 5 + [_F] * 9 + [_P],
+    "rps_pair_force": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
     "rps_nbody_accel": [_P, _P, _I, _F, _F, _F, _P],
     "rps_splat_planes": [_P] * 6 + [_I] * 10 + [_F] * 3 + [_P],
 }

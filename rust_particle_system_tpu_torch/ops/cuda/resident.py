@@ -168,13 +168,16 @@ def predict_planes(ps: PlaneState, params: SimParams) -> list:
     return [predx, predy, vxp, vyp, ps.idsf]
 
 
-def walk_positions(npx, npy, spec: GridSpec):
+def walk_positions(npx, npy, spec: GridSpec, row0: int = 0):
     """The walks' position planes: DEFERRED slots (live, but resident in another
-    cell than their key) are parked at SENTINEL (resident.py:264-273)."""
+    cell than their key) are parked at SENTINEL (resident.py:264-273).  The
+    planes' first row is global row ``row0`` of ``spec`` (a band's slab on the
+    band-sharded mesh, JAX plane_sharded.py:207-216)."""
     kx = cell_index(npx, spec.x_min, spec.cell_width, spec.gw)
     ky = cell_index(npy, spec.y_min, spec.cell_size, spec.gh)
     cellx = torch.arange(spec.gw, dtype=torch.int32, device=npx.device)[None, :, None]
-    celly = torch.arange(spec.gh, dtype=torch.int32, device=npx.device)[:, None, None]
+    celly = (row0 + torch.arange(npx.shape[0], dtype=torch.int32,
+                                 device=npx.device))[:, None, None]
     defer = (npx < 0.5 * SENTINEL) & ((kx != cellx) | (ky != celly))
     return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
 
@@ -197,6 +200,24 @@ def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
             torch.where(live2, nvx, 0.0), torch.where(live2, nvy, 0.0))
 
 
+def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: bool,
+                       row0: int = 0, halo=None):
+    """The frame after the rebin: the defer mask, the walks (K2 + K3, or K3b
+    and the torch tail with ``fuse_tail=False``; K6 for ``spec.pack2``) and
+    the re-parked ids, on the rebinned channels (px, py, vx, vy, idsf).  On a
+    band's slab, ``row0`` is its first global row and ``halo`` brings the
+    walks' ghost rows (see :mod:`.sph_step`).  Returns the new (px, py, vx,
+    vy, idsf) planes and the walk x plane (deferred slots parked)."""
+    npx, npy, nvx0, nvy0, nidsf = rebinned
+    fpx, fpy = walk_positions(npx, npy, spec, row0)
+    if fuse_tail:
+        out = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec, params, halo)
+    else:
+        nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params, halo)
+        out = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params)
+    return (*out, torch.where(npx < 0.5 * SENTINEL, nidsf, 0.0)), fpx
+
+
 def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
                   fuse_tail: bool = True) -> PlaneState:
     """One live physics frame: gravity + predict, rebin (K1), defer mask, density
@@ -208,20 +229,10 @@ def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
     movers in transit, stay in their slot and are DEFERRED — parked out of the
     force walks for the frame (gravity + integrate + bounce only)."""
     live_before = ps.live.sum(dtype=torch.int32)
-    (npx, npy, nvx0, nvy0, nidsf), counts = rebin_planes(
-        predict_planes(ps, params), spec)
+    rebinned, counts = rebin_planes(predict_planes(ps, params), spec)
     kept = counts.clamp_max(spec.capacity).sum(dtype=torch.int32)
-    fpx, fpy = walk_positions(npx, npy, spec)
-    if fuse_tail:
-        px2, py2, vx2, vy2 = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy,
-                                                spec, params)
-    else:
-        nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params)
-        px2, py2, vx2, vy2 = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy,
-                                           params)
-    live2 = npx < 0.5 * SENTINEL
-    return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2,
-                      idsf=torch.where(live2, nidsf, 0.0), frame=ps.frame,
+    (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(rebinned, spec, params, fuse_tail)
+    return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2, idsf=idsf, frame=ps.frame,
                       lost=ps.lost + (live_before - kept), n=ps.n)
 
 

@@ -22,6 +22,12 @@ one-cell-per-slot-row layout and the pair-packed one:
   walk the window the TPU walked, B[p] and B[p+1] (cells 2p-1 .. 2p+2, rows
   r-1 .. r+1), whose extra column adds exact zeros.
 
+Ghost rows: with ``ghost=True`` the neighbour-side planes are a band's slab
+with one ghost row on each side (``[R + 2, gw, C]``, the rows of the
+neighbour bands on the band-sharded mesh, the JAX walks' ``halo``); the walk
+serves the R own rows only, and the own-side planes (``NPo``, ``npx``,
+``npy``) and the outputs are ``[R, gw, C]``.
+
 Conventions (as in JAX): dead slots and deferred slots carry position
 SENTINEL in the walk planes, so every pair with them weighs exactly 0.  Both
 walks give 0 accumulators to slots whose walk position is parked (the JAX
@@ -99,15 +105,21 @@ def _live_slot_bound(px, r0: int, r1: int) -> int:
     return int(idx.max()) + 1 if idx.numel() else 0
 
 
+def _own_rows(gh: int, ghost: bool) -> tuple:
+    """The own rows [lo, hi) of neighbour planes of ``gh`` rows."""
+    return (1, gh - 1) if ghost else (0, gh)
+
+
 def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float,
-                         pair: bool = False):
+                         pair: bool = False, ghost: bool = False):
     """Plain PyTorch version of K2 (of K6's density walk with ``pair``)."""
     gh, gw, C = px.shape
-    rho = torch.zeros_like(px)
-    rhon = torch.zeros_like(px)
+    lo, hi = _own_rows(gh, ghost)
+    rho = torch.zeros((hi - lo, gw, C), dtype=px.dtype, device=px.device)
+    rhon = torch.zeros_like(rho)
     step = _chunk_rows(gw, C, pair)
-    for r0 in range(0, gh, step):
-        r1 = min(gh, r0 + step)
+    for r0 in range(lo, hi, step):
+        r1 = min(hi, r0 + step)
         c = _live_slot_bound(px, r0, r1)
         if c == 0:
             continue
@@ -119,21 +131,44 @@ def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float,
         v = (h - torch.sqrt(dx * dx + dy * dy)).clamp_min(0.0)
         vv = v * v
         own_live = _live(pxc[r0:r1])
-        rho[r0:r1, :, :c] = torch.where(own_live, dnorm * vv.sum(-2).sum(-1), 0.0)
-        rhon[r0:r1, :, :c] = torch.where(own_live,
-                                         nnorm * (vv * v).sum(-2).sum(-1), 0.0)
+        rho[r0 - lo:r1 - lo, :, :c] = torch.where(own_live, dnorm * vv.sum(-2).sum(-1),
+                                                  0.0)
+        rhon[r0 - lo:r1 - lo, :, :c] = torch.where(own_live,
+                                                   nnorm * (vv * v).sum(-2).sum(-1), 0.0)
     return rho, rhon
 
 
-def _launch(entry: str, ins, n_out: int, *scalars):
-    """Launch a walk kernel on ``[gh, gw, C]`` planes: ``ins`` in, ``n_out``
-    new planes out, then the grid shape and ``scalars`` by value."""
-    _lib.require_cuda_planes(*ins)
-    gh, gw, C = ins[0].shape
-    outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
+def _check_shapes(nbr, own, ghost: bool) -> None:
+    """Neighbour-side planes of one shape ``[gh, gw, C]`` (gh >= 3 with ghost
+    rows); own-side planes ``[R, gw, C]`` for the R own rows."""
+    gh, gw, C = nbr[0].shape
+    r0, r1 = _own_rows(gh, ghost)
+    if r1 <= r0 or any(t.shape != nbr[0].shape for t in nbr):
+        raise ValueError(f"neighbour planes {[tuple(t.shape) for t in nbr]} "
+                         f"(ghost rows: {ghost})")
+    if any(t.shape != (r1 - r0, gw, C) for t in own):
+        raise ValueError(f"own-side planes {[tuple(t.shape) for t in own]} do not fit "
+                         f"neighbour planes {tuple(nbr[0].shape)} (ghost rows: {ghost})")
+
+
+def _launch(entry: str, nbr, own, n_out: int, ghost: bool, *scalars):
+    """Launch a walk kernel: neighbour-side planes ``nbr`` ``[gh, gw, C]``
+    (with a ghost row on each side if ``ghost``), own-side planes ``own`` and
+    ``n_out`` new output planes ``[R, gw, C]``, then the grid shape and
+    ``scalars`` by value."""
+    _lib.require_cuda_planes(*nbr)
+    if own:
+        _lib.require_cuda_planes(*own)
+        if own[0].device != nbr[0].device:
+            raise ValueError(f"own-side planes on {own[0].device}, neighbour planes on "
+                             f"{nbr[0].device}")
+    gh, gw, C = nbr[0].shape
+    r0, r1 = _own_rows(gh, ghost)
+    outs = tuple(torch.empty((r1 - r0, gw, C), dtype=torch.float32, device=nbr[0].device)
+                 for _ in range(n_out))
     fn = getattr(_lib.library(), entry)
-    _lib.check(entry, fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs],
-                         gh, gw, C, *scalars, _lib.stream()))
+    _lib.check(entry, fn(*[t.data_ptr() for t in (*nbr, *own, *outs)],
+                         gh, r0, r1 - r0, gw, C, *scalars, _lib.stream()))
     return outs
 
 
@@ -143,13 +178,15 @@ def density_scalars(params: SimParams) -> tuple:
             params.near_density_kernel_norm)
 
 
-def density_planes(px, py, params: SimParams):
-    """(rho, rhon) ``[gh, gw, C]`` from walk position planes.  Launches K2 for
-    CUDA tensors; runs the plain version for CPU tensors."""
+def density_planes(px, py, params: SimParams, ghost: bool = False):
+    """(rho, rhon) ``[gh, gw, C]`` from walk position planes (the own rows
+    only with ``ghost``).  Launches K2 for CUDA tensors; runs the plain version
+    for CPU tensors."""
     scal = density_scalars(params)
+    _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
-        return density_planes_plain(px, py, *scal)
-    out = _launch("rps_density", (px, py), 2, *scal)
+        return density_planes_plain(px, py, *scal, ghost=ghost)
+    out = _launch("rps_density", (px, py), (), 2, ghost, *scal)
     density_planes.launches += 1
     return out
 
@@ -157,13 +194,14 @@ def density_planes(px, py, params: SimParams):
 density_planes.launches = 0
 
 
-def density_pairs(px, py, params: SimParams):
+def density_pairs(px, py, params: SimParams, ghost: bool = False):
     """:func:`density_planes` in the pair-packed layout: launches K6's density
     walk for CUDA tensors; runs its plain version for CPU tensors."""
     scal = density_scalars(params)
+    _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
-        return density_planes_plain(px, py, *scal, pair=True)
-    out = _launch("rps_pair_density", (px, py), 2, *scal)
+        return density_planes_plain(px, py, *scal, pair=True, ghost=ghost)
+    out = _launch("rps_pair_density", (px, py), (), 2, ghost, *scal)
     density_pairs.launches += 1
     return out
 
@@ -227,18 +265,22 @@ def tail_plain(accs, own, scal):
             torch.where(live, nvx, 0.0), torch.where(live, nvy, 0.0))
 
 
-def _force_walk_plain(planes, scal: tuple, epilogue, pair: bool):
+def _force_walk_plain(planes, scal: tuple, epilogue, pair: bool, ghost: bool):
     """Plain PyTorch version of the K3/K3b/K6 force walk: the five pair sums
     over the dense window in row chunks, then ``epilogue(accs, own, scal)`` per
-    chunk.  ``planes`` = (px, py, P1, NPn, vx, vy, NPo, *own-only extras)."""
+    chunk.  ``planes`` = (px, py, P1, NPn, vx, vy, NPo, *own-only extras): the
+    first six on the neighbour side, the rest own-side."""
     px, py, P1, NPn, vx, vy = planes[:6]
     h, eps2 = scal[0], scal[1]
     gh, gw, C = px.shape
-    outs = [torch.empty_like(px) for _ in range(4)]
+    lo, hi = _own_rows(gh, ghost)
+    outs = [torch.empty((hi - lo, gw, C), dtype=px.dtype, device=px.device)
+            for _ in range(4)]
     step = _chunk_rows(gw, C, pair)
-    for r0 in range(0, gh, step):
-        r1 = min(gh, r0 + step)
-        own = [t[r0:r1] for t in planes]
+    for r0 in range(lo, hi, step):
+        r1 = min(hi, r0 + step)
+        own = ([t[r0:r1] for t in planes[:6]]
+               + [t[r0 - lo:r1 - lo] for t in planes[6:]])
         accs = [torch.zeros_like(own[0]) for _ in range(5)]
         c = _live_slot_bound(px, r0, r1)
         if c:
@@ -264,26 +306,26 @@ def _force_walk_plain(planes, scal: tuple, epilogue, pair: bool):
             for a, t in zip(accs, sums):
                 a[..., :c] = torch.where(walk_live, t.sum(-2).sum(-1), 0.0)
         for o, t in zip(outs, epilogue(accs, own, scal)):
-            o[r0:r1] = t
+            o[r0 - lo:r1 - lo] = t
     return tuple(outs)
 
 
 def force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                                  scal: tuple, pair: bool = False):
+                                  scal: tuple, pair: bool = False, ghost: bool = False):
     """Plain PyTorch version of K3 (of K6's fused walk with ``pair``)."""
     return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo, npx, npy), scal,
-                             tail_plain, pair)
+                             tail_plain, pair, ghost)
 
 
 def force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal: tuple,
-                       pair: bool = False):
+                       pair: bool = False, ghost: bool = False):
     """Plain PyTorch version of K3b (of K6's raw walk with ``pair``)."""
     return _force_walk_plain((px, py, P1, NPn, vx, vy, NPo), scal, finalize_plain,
-                             pair)
+                             pair, ghost)
 
 
 def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                            params: SimParams):
+                            params: SimParams, ghost: bool = False):
     """The fused pressure + viscosity walk with the frame tail in its epilogue.
 
     Walk planes ``px, py`` (deferred slots parked at SENTINEL), per-slot terms
@@ -291,10 +333,13 @@ def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
     true predicted positions ``npx, npy`` on the own side.  Returns the FINAL
     (px, py, vx, vy) planes.  Launches K3 for CUDA tensors; runs the plain
     version for CPU tensors."""
-    ins, scal = (px, py, P1, NPn, vx, vy, NPo, npx, npy), force_scalars(params)
+    scal = force_scalars(params)
+    _check_shapes((px, py, P1, NPn, vx, vy), (NPo, npx, npy), ghost)
     if _lib.dispatch(px) == "plain":
-        return force_planes_integrated_plain(*ins, scal)
-    out = _launch("rps_force_integrated", ins, 4, *scal)
+        return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                                             scal, ghost=ghost)
+    out = _launch("rps_force_integrated", (px, py, P1, NPn, vx, vy), (NPo, npx, npy),
+                  4, ghost, *scal)
     force_planes_integrated.launches += 1
     return out
 
@@ -303,13 +348,16 @@ force_planes_integrated.launches = 0
 
 
 def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
-                           params: SimParams):
+                           params: SimParams, ghost: bool = False):
     """:func:`force_planes_integrated` in the pair-packed layout: launches K6's
     fused walk for CUDA tensors; runs its plain version for CPU tensors."""
-    ins, scal = (px, py, P1, NPn, vx, vy, NPo, npx, npy), force_scalars(params)
+    scal = force_scalars(params)
+    _check_shapes((px, py, P1, NPn, vx, vy), (NPo, npx, npy), ghost)
     if _lib.dispatch(px) == "plain":
-        return force_planes_integrated_plain(*ins, scal, pair=True)
-    out = _launch("rps_pair_force_integrated", ins, 4, *scal)
+        return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
+                                             scal, pair=True, ghost=ghost)
+    out = _launch("rps_pair_force_integrated", (px, py, P1, NPn, vx, vy),
+                  (NPo, npx, npy), 4, ghost, *scal)
     force_pairs_integrated.launches += 1
     return out
 
@@ -317,15 +365,16 @@ def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
 force_pairs_integrated.launches = 0
 
 
-def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
+def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = False):
     """The pressure + viscosity walk with the raw-sum epilogue: (fx, fy, fvx,
     fvy) planes, fvx/fvy unscaled (the caller applies the viscosity scale).
     Same inputs as :func:`force_planes_integrated` without ``npx, npy``.
     Launches K3b for CUDA tensors; runs the plain version for CPU tensors."""
-    ins, scal = (px, py, P1, NPn, vx, vy, NPo), force_scalars(params)
+    scal = force_scalars(params)
+    _check_shapes((px, py, P1, NPn, vx, vy), (NPo,), ghost)
     if _lib.dispatch(px) == "plain":
-        return force_planes_plain(*ins, scal)
-    out = _launch("rps_force", ins, 4, *scal[:2])
+        return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, ghost=ghost)
+    out = _launch("rps_force", (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
     force_planes.launches += 1
     return out
 
@@ -333,13 +382,16 @@ def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
 force_planes.launches = 0
 
 
-def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams):
+def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = False):
     """:func:`force_planes` in the pair-packed layout: launches K6's raw walk
     for CUDA tensors; runs its plain version for CPU tensors."""
-    ins, scal = (px, py, P1, NPn, vx, vy, NPo), force_scalars(params)
+    scal = force_scalars(params)
+    _check_shapes((px, py, P1, NPn, vx, vy), (NPo,), ghost)
     if _lib.dispatch(px) == "plain":
-        return force_planes_plain(*ins, scal, pair=True)
-    out = _launch("rps_pair_force", ins, 4, *scal[:2])
+        return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, pair=True,
+                                  ghost=ghost)
+    out = _launch("rps_pair_force", (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost,
+                  *scal[:2])
     force_pairs.launches += 1
     return out
 

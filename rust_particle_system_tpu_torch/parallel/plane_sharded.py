@@ -1,0 +1,139 @@
+"""The band-sharded plane-resident step and rendered frame.
+
+Counterpart of ``rust_particle_system_tpu/parallel/plane_sharded.py`` (rebin
+variant 6).  Each rank owns ``R = gh / n_bands`` rows of cell slots of the
+``[gh, gw, C]`` planes (:func:`.shard.shard_plane_state`) and runs the
+single-device frame on them with the same kernels: migration between bands
+IS the lossless rebin, which adopts a mover from the neighbour band's edge
+row like any local one (K7: K1 on the band's slab with ghost rows), and the
+walks (K2/K3/K3b, or K6) read the neighbour bands' edge rows as ghost rows.
+
+Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
+``all_reduce``):
+
+1. gravity + predict                                   (elementwise)
+2. rebin ghost rows, K7                                 one exchange (two at R=1)
+3. defer mask in global rows
+4. the walk planes' ghost rows, density walk            one exchange
+5. the pressure terms' ghost rows, force walk + tail    one exchange
+6. diagnostics                                          one int32 all_reduce
+
+On one card the 4-band step equals :func:`~..ops.cuda.resident.plane_step` on
+the same grid bit for bit: K7 is bit-equal to K1's rows, the walks stage each
+cell's live neighbours in an order that depends only on the cells, and the
+elementwise glue runs the same operations.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from ..ops.cuda.rebin import SENTINEL, rebin_planes_band, require_variant_6
+from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
+from ..render.splat import splat_resolve
+from ..render.splat_planes import MARGIN, splat_from_planes
+from .halo import halo_rows, rebin_halo
+from .mesh import BandMesh
+
+FILLS = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)  # predx, predy, vx, vy, idsf
+DIAGS = ("live_before", "live_after", "deferred")
+
+
+def _local_plane_physics(ps: PlaneState, params, spec, mesh: BandMesh,
+                         fuse_tail: bool):
+    """One physics frame on this rank's ``[R, gw, C]`` slab.  Returns the new
+    slab state and the diagnostics' per-band int32 counts."""
+    R = ps.px.shape[0]
+    row0 = mesh.rank * R
+    live_before = ps.live.sum(dtype=torch.int32)
+    chans = predict_planes(ps, params)
+    rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
+                                    *rebin_halo(chans, FILLS, mesh))
+    planes, fpx = walk_and_integrate(rebinned, spec, params, fuse_tail, row0,
+                                     functools.partial(halo_rows, mesh=mesh))
+    live = planes[0] < 0.5 * SENTINEL
+    deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)
+    new = PlaneState(*planes, frame=ps.frame, lost=ps.lost, n=ps.n)
+    return new, torch.stack([live_before, live.sum(dtype=torch.int32), deferred])
+
+
+def check_plane_diags(diags: torch.Tensor, expect_particles: int | None = None) -> dict:
+    """Raise on conservation violations (there must be none: the rebin is
+    lossless by construction); return host ints by name.  ``deferred`` is
+    informational: persistently large values mean the grid capacity is
+    undersized for the density the flow reaches."""
+    vals = dict(zip(DIAGS, diags.tolist()))
+    if vals["live_after"] != vals["live_before"]:
+        raise ValueError(
+            f"plane-sharded step lost particles: {vals['live_before']} -> "
+            f"{vals['live_after']}: lossless-rebin invariant violated (bug)")
+    if expect_particles is not None and vals["live_after"] != expect_particles:
+        raise ValueError(f"particle count {vals['live_after']} != expected "
+                         f"{expect_particles}")
+    return vals
+
+
+def make_plane_sharded_step(spec, mesh: BandMesh, rebin_variant: int = 6,
+                            fuse_tail: bool = True):
+    """The band-sharded plane step ``(slab PlaneState, SimParams) -> (slab
+    PlaneState, diags)``: this rank's part of one frame of the grid ``spec``,
+    on a slab from :func:`.shard.shard_plane_state`.  ``diags`` is the [3]
+    int32 tensor of :data:`DIAGS`, summed over the bands (read it with
+    :func:`check_plane_diags`).
+
+    ``fuse_tail`` as in ``plane_step``: the fused walk (K3, or K6), or the raw
+    walk (K3b, or K6) and the tail in torch, the order of JAX's sharded step.
+    Only rebin variant 6 is ported; variant 5 runs K9, still to port.  The
+    warm-up gate reads the host-side frame counter, as ``plane_step`` does."""
+    require_variant_6(rebin_variant)
+    if spec.gh % mesh.size:
+        raise ValueError(f"gh={spec.gh} must divide by {mesh.size} bands; build the "
+                         f"grid with parallel.shard.make_shard_spec")
+
+    def step(ps: PlaneState, params):
+        if ps.frame >= params.shader_delay:
+            new, counts = _local_plane_physics(ps, params, spec, mesh, fuse_tail)
+        else:
+            new, live = ps, ps.live.sum(dtype=torch.int32)
+            counts = torch.stack([live, live, torch.zeros_like(live)])
+        return dataclasses.replace(new, frame=ps.frame + 1), mesh.all_reduce(counts)
+
+    return step
+
+
+def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
+                             rebin_variant: int = 6, fuse_tail: bool = True):
+    """The sharded step plus its image: each band rasterizes its rows (K4) into
+    full-image accumulators, one all_reduce sums them, and every rank resolves
+    the image.  Returns ``(slab PlaneState, SimParams) -> (slab PlaneState,
+    [H, W, 4] image, diags)``.
+
+    The band's slab is embedded in full-height planes of dead slots, because
+    the rasterizer places a cell's patch by its global row; K4 therefore
+    sweeps the whole grid on every band (a row-window K4 is not written yet).
+    As in JAX: margin 4, drift clamped, ramp colours summing to 1 with blue
+    rebuilt before the sum (linear, so the sum is unchanged)."""
+    step = make_plane_sharded_step(spec, mesh, rebin_variant, fuse_tail)
+    R = spec.gh // mesh.size
+    rows = slice(mesh.rank * R, (mesh.rank + 1) * R)
+
+    def frame(ps: PlaneState, params):
+        new, diags = step(ps, params)
+        full = []
+        for p, f in zip((new.px, new.py, new.vx, new.vy), FILLS):
+            plane = torch.full((spec.gh, spec.gw, spec.capacity), f, dtype=p.dtype,
+                               device=p.device)
+            plane[rows] = p
+            full.append(plane)
+        rgb, alpha = splat_from_planes(
+            *full, full[0] < 0.5 * SENTINEL, params.particle_size, params.max_energy,
+            bounds_static=bounds_static, grid_spec=spec, render_spec=render_spec,
+            margin=MARGIN, resolve=False, clamp_drift=True, color_sum=1.0)
+        acc = mesh.all_reduce(torch.cat([rgb, alpha[..., None]], dim=-1))
+        image = splat_resolve(acc[..., :3], acc[..., 3], (0.0, 0.0, 0.0, 1.0))
+        return new, image, diags
+
+    return frame
