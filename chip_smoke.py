@@ -17,7 +17,11 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      C=64 on a small grid); K7 on each of 4 bands of the 1M state on the
      grid padded to 124 rows (and with air rows across a band boundary, and
      8 bands of one row on a small grid) bit-equal to K1's rows and to its
-     plain version; K2, K3 and K3b at the stated tolerances; the
+     plain version; K9 (the hole-fill passes of rebin variants 4 and 5) in
+     each of its four modes, each whole variant, and variant 5 against K1,
+     bit-equal on the same states, and in band mode on the 4 x 31 rows; K12
+     (variants 2 and 3) bit-equal, also where counts exceed C; K2, K3 and
+     K3b at the stated tolerances; the
      unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
      the 1080p image of the stepped state (sum rule, given colours, radius 2)
      and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
@@ -43,6 +47,12 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
             gravity 300, frames and step_and_render frames: lost == 0, live
             count exact, K6 launched and K2/K3 not;
      pack2_unfused  plane_frame(fuse_tail=False) on that model (K6's raw walk);
+     step_v5  plane_step(variant=5) at 1M, 4 frames, each bit-equal to
+            variant 6's; K9 launched and K1 not; frame_v5  one
+            plane_frame(variant=5), state and image bit-equal to variant 6's;
+     step_v4, step_v3, step_v2  the 50k scene, 5 warm-up + 60 live frames of
+            plane_step(variant=4|3|2): finite, in bounds, live + lost == n;
+            v2's planes bit-equal to v3's; K9 (v4) or K12 (v2, v3) alone;
      nbody, flow, attractor  runtime.cli.main(--model ... --render
             build/chip_smoke_<model>.png --stats); nbody launches K8;
      mesh_gloo  the band-sharded step (parallel/) in a world of 4 spawned
@@ -54,9 +64,14 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
             render_plane_state; K7 and the walks launched, K1 not;
      mesh_nccl  the same at 1M in an NCCL world of one rank per card;
      mesh_pack2  the same, pair-packed C=64 at 200k over 4 gloo ranks (K6);
+     mesh_gloo_v5, mesh_nccl_v5  4 + 1 frames at 1M with rebin_variant=5
+            (K9 with ghost rows and the adoption returned), bit-equal to
+            the single-device plane_step; K9 launched, K7 and K1 not;
   4  ms per frame, CUDA events: 1M uniform C=128 (the step, the render alone,
      step_and_render); 1M uniform pair-packed C=64 against classic C=64; the
-     N-body at 16,384, the flow field at 1M, the attractor at 65,536.
+     N-body at 16,384, the flow field at 1M, the attractor at 65,536; the
+     variant-5 rebin at 1M stage by stage (events, and device time by the
+     profiler), K12, and plane_step at 1M for variants 6, 5 and 4 in turns.
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -144,6 +159,27 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds per call of the card's kernel time, by torch.profiler:
+    the sum of the CUDA kernel rows over ``reps`` calls (after one warm
+    call), so a host-bound call reads its device work, not its enqueue."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+    return us / 1e3 / reps
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -223,7 +259,8 @@ def kernel_counters() -> dict:
     launches in ``.launches``)."""
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel
     from rust_particle_system_tpu_torch.ops.cuda.plane_build import cell_planes_aos
-    from rust_particle_system_tpu_torch.ops.cuda.rebin import rebin_planes, rebin_planes_band
+    from rust_particle_system_tpu_torch.ops.cuda.rebin import (
+        hole_fill_pass, rebin_compact, rebin_planes, rebin_planes_band)
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
         density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
         force_planes_integrated)
@@ -232,7 +269,8 @@ def kernel_counters() -> dict:
     return {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
             "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
             "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
-            "K7": rebin_planes_band, "K8": nbody_accel}
+            "K7": rebin_planes_band, "K8": nbody_accel, "K9": hole_fill_pass,
+            "K12": rebin_compact}
 
 
 def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
@@ -258,7 +296,7 @@ def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, devi
 
 
 def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: int,
-              render: bool, seed: int) -> dict:
+              render: bool, seed: int, rebin_variant: int) -> dict:
     """One band of a sharded world (run by run_bands, one process per band):
     the whole n-particle uniform state on the grid padded to the bands, built
     alike on every rank from ``seed``; then, with the launch counts set to 0,
@@ -266,7 +304,8 @@ def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: in
     ``render``, one sharded frame with its 1080p image, the diagnostics read
     after each (lost 0, live count exact).  Band 0 then holds the gathered
     planes to the single-device plane_step from the same state, bit for bit,
-    and the image to render_plane_state of it at atol 2.5e-2."""
+    and the image to render_plane_state of it at atol 2.5e-2.  Both run the
+    rebin ``rebin_variant`` (6: K7 on the bands, 5: K9's passes)."""
     import torch
 
     from rust_particle_system_tpu_torch.ops.cuda import resident as R
@@ -283,7 +322,7 @@ def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: in
     slab = shard_plane_state(whole, mesh)
     ms, render_ms = [], None
     for fuse_tail, count in ((True, frames), (False, unfused)):
-        step = make_plane_sharded_step(spec, mesh, fuse_tail=fuse_tail)
+        step = make_plane_sharded_step(spec, mesh, rebin_variant, fuse_tail)
         for _ in range(count):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -292,7 +331,7 @@ def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: in
             ms.append((time.perf_counter() - t0) * 1e3)
     if render:
         rs = RenderSpec()
-        frame = make_plane_sharded_frame(spec, mesh, rs, BOUNDS)
+        frame = make_plane_sharded_frame(spec, mesh, rs, BOUNDS, rebin_variant)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         slab, image, diags = frame(slab, params)
@@ -309,7 +348,7 @@ def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: in
     ref = whole
     for fuse_tail, count in ((True, frames), (False, unfused), (True, int(render))):
         for _ in range(count):
-            ref = R.plane_step(ref, params, spec, fuse_tail=fuse_tail)
+            ref = R.plane_step(ref, params, spec, fuse_tail, rebin_variant)
     require(got.frame == ref.frame and all(
         torch.equal(getattr(got, f), getattr(ref, f)) for f in ("px", "py", "vx", "vy", "idsf")),
         f"{mesh.size} bands ({mesh.backend}): the gathered planes differ from the "
@@ -325,7 +364,8 @@ def mesh_rank(mesh, n: int, capacity: int, pack2: bool, frames: int, unfused: in
 def mesh_worlds(paths: dict, card: str) -> dict:
     """The band-sharded mesh's worlds of spawned ranks (parallel.run_bands):
     4 ranks over gloo on card 0 (1M C=128, and pair-packed 200k), and one
-    rank per card over NCCL (1M).  Each rank counts its own launches, set to 0
+    rank per card over NCCL (1M); then both 1M worlds again with rebin
+    variant 5.  Each rank counts its own launches, set to 0
     just before its path; ``paths`` gets the sums over the ranks.  Returns
     each world's timings.  gloo stages every halo and all_reduce through the
     host: its times are not NVLink times."""
@@ -334,11 +374,13 @@ def mesh_worlds(paths: dict, card: str) -> dict:
     from rust_particle_system_tpu_torch.parallel import run_bands
 
     mesh_ms = {}
+    cards = torch.cuda.device_count()
     for label, n_bands, backend, margs in (
-            ("mesh_gloo", 4, "gloo", (N_1M, 128, False, 6, 2, True, 21)),
-            ("mesh_nccl", torch.cuda.device_count(), "nccl",
-             (N_1M, 128, False, 6, 2, True, 22)),
-            ("mesh_pack2", 4, "gloo", (200_000, 64, True, 6, 2, False, 23))):
+            ("mesh_gloo", 4, "gloo", (N_1M, 128, False, 6, 2, True, 21, 6)),
+            ("mesh_nccl", cards, "nccl", (N_1M, 128, False, 6, 2, True, 22, 6)),
+            ("mesh_pack2", 4, "gloo", (200_000, 64, True, 6, 2, False, 23, 6)),
+            ("mesh_gloo_v5", 4, "gloo", (N_1M, 128, False, 4, 1, False, 24, 5)),
+            ("mesh_nccl_v5", cards, "nccl", (N_1M, 128, False, 4, 1, False, 25, 5))):
         t0 = time.perf_counter()
         res = run_bands(mesh_rank, n_bands, backend, "cuda", timeout=400.0, args=margs)
         world_s = time.perf_counter() - t0
@@ -346,17 +388,21 @@ def mesh_worlds(paths: dict, card: str) -> dict:
         paths[label] = launches
         frames = margs[3] + margs[4] + int(margs[5])
         walks = ("K6d", "K6f", "K6r") if margs[2] else ("K2", "K3", "K3b")
-        require(launches["K7"] == n_bands * frames and launches["K1"] == 0
-                and all(launches[k] > 0 for k in walks)
+        rebins = ({"K7": n_bands * frames, "K9": 0} if margs[7] == 6
+                  else {"K7": 0, "K9": 2 * n_bands * frames})
+        require(all(launches[k] == v for k, v in rebins.items()) and launches["K1"] == 0
+                and launches["K12"] == 0 and all(launches[k] > 0 for k in walks)
                 and launches["K4"] == n_bands * int(margs[5]),
-                f"{label}: the sharded path did not run K7 and its walks alone: {launches}")
+                f"{label}: the sharded path did not run its rebin ({rebins}) and its walks "
+                f"alone: {launches}")
         ms = [max(r["ms_per_frame"][i] for r in res) for i in range(margs[3] + margs[4])]
         mesh_ms[label] = {"transport": backend, "bands": n_bands, "rows": res[0]["rows"],
                           "n": margs[0], "ms_per_frame": ms,
                           "ms_frame_with_image": res[0]["ms_frame_with_image"],
                           "world_s": world_s}
         err = res[0].get("image_err")
-        print(f"phase 3: {label}: {n_bands} band(s) x {res[0]['rows']} rows over {backend} "
+        print(f"phase 3: {label}: {n_bands} band(s) x {res[0]['rows']} rows over {backend}, "
+              f"rebin variant {margs[7]} "
               f"({'host-staged halos, ' if backend == 'gloo' else ''}on "
               f"{', '.join(sorted({r['device'] for r in res}))}), {margs[0]} particles, "
               f"{margs[3]} + {margs[4]} unfused frames{' + 1 with its image' if margs[5] else ''}: "
@@ -393,7 +439,9 @@ def main() -> int:
     from rust_particle_system_tpu_torch.ops.cuda.plane_build import (
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
-        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain)
+        hole_fill_pass, hole_fill_pass_plain, rebin_compact, rebin_compact_plain,
+        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain,
+        retention_merge)
     from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
@@ -565,6 +613,113 @@ def main() -> int:
            nbytes(*args7[0], *args7[4], *args7[5], *args7[6], *out7, cnt7), 0)
     print("phase 2: K7 bit-equal to K1's rows and to its plain version (1M on 4 x 31 rows, "
           "air rows across a band boundary, 8 bands x 1 row x drift 0.4/0.9/1.8)")
+
+    # K9: the separable hole-fill pass of rebin variants 4 and 5, in each of
+    # its four modes (pass Y / pass X, lossy / lossless) against its plain
+    # version on the same planes; each whole variant against its plain chain
+    # (the same torch merges around the plain passes); variant 5 against K1.
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    def check_k9(label, planes, sp):
+        nc, C = sp.num_cells, sp.capacity
+        flats = [p.reshape(nc, C) for p in planes]
+        for shift, row_only in ((sp.gw, True), (1, False)):
+            for lossless in (False, True):
+                x = hole_fill_pass(flats, sp, fills, shift, row_only, lossless)
+                y = hole_fill_pass_plain(flats, sp, fills, shift, row_only, lossless)
+                require(same(x[0], y[0]) and torch.equal(x[1], y[1])
+                        and (x[2] is None if y[2] is None else torch.equal(x[2], y[2])),
+                        f"K9 ({label}, shift {shift}, lossless {lossless}) differs from its "
+                        "plain version")
+        for v in (4, 5):
+            x, cx = rebin_planes(planes, sp, variant=v)
+            y, cy = rebin_planes_plain(planes, sp, variant=v)
+            require(same(x, y) and torch.equal(cx, cy),
+                    f"rebin variant {v} ({label}) differs from its plain version")
+        x, cx = rebin_planes(planes, sp, variant=5)
+        y, cy = rebin_planes(planes, sp, variant=6)
+        require(same(x, y) and torch.equal(cx, cy), f"K9's variant 5 ({label}) differs from K1")
+
+    check_k9("1M stepped", rin, spec)
+    check_k9("air rows", air, spec)
+    for C in (16, 64):
+        small = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=7, capacity=C)
+        for drift in (0.4, 0.9, 1.8):
+            check_k9(f"C={C}, drift {drift}",
+                     demo_planes(torch, small, 0.7, drift, seed=C + int(10 * drift),
+                                 device="cuda"), small)
+    # K9's band mode (the sharded step's variant 5): pass Y on each 31-row
+    # band of the padded 1M state with the neighbour rows as ghost rows (the
+    # fills past the grid, as the mesh gives them), then pass X band-local.
+    for b in range(4):
+        r0, rb = 31 * b, 31
+        nb = rb * spec7.gw
+        fill_row = lambda c: torch.full_like(rin7[c][0], fills[c])
+        ghosts = [(rin7[c][r0 - 1] if r0 else fill_row(c),
+                   rin7[c][r0 + rb] if r0 + rb < spec7.gh else fill_row(c)) for c in range(5)]
+        bflats = [p[r0:r0 + rb].reshape(nb, 128) for p in rin7]
+        for args9 in ((bflats, spec7, fills, spec7.gw, True, True, ghosts, r0),
+                      (bflats, spec7, fills, 1, False, True, None, r0)):
+            x, y = hole_fill_pass(*args9), hole_fill_pass_plain(*args9)
+            require(same(x[0], y[0]) and torch.equal(x[1], y[1]) and torch.equal(x[2], y[2]),
+                    f"K9 band mode (band {b}, shift {args9[3]}) differs from its plain version")
+    # Its row: one variant-5 rebin's two passes on the 1M stepped state.
+    nc1 = spec.num_cells
+    flats1 = [p.reshape(nc1, 128) for p in rin]
+    passY = (flats1, spec, fills, spec.gw, True, True)
+    midY, _, accY = hole_fill_pass(*passY)
+    mergedY = retention_merge(flats1, midY, accY, spec, spec.gw, True)
+    passX = (mergedY, spec, fills, 1, False, True)
+    outX, cntX, accX = hole_fill_pass(*passX)
+    k9_err = max(max_abs(x, y) for x, y in zip(
+        midY + outX, hole_fill_pass_plain(*passY)[0] + hole_fill_pass_plain(*passX)[0]))
+    record("K9", "K9 hole-fill passes Y + X (variant 5)",
+           "rust_particle_system_tpu_torch/csrc/rebin_pass.cu",
+           "rust_particle_system_tpu/ops/pallas/rebin.py:190", k9_err,
+           cuda_ms(lambda: hole_fill_pass(*passY), 20) + cuda_ms(lambda: hole_fill_pass(*passX), 20),
+           cuda_ms(lambda: hole_fill_pass_plain(*passY), 5)
+           + cuda_ms(lambda: hole_fill_pass_plain(*passX), 5),
+           nbytes(*flats1, *midY, accY, *mergedY, *outX, cntX, accX) + 4 * nc1, 0)
+    print("phase 2: K9 bit-equal to its plain version in its four modes and as variants 4 "
+          "and 5, variant 5 bit-equal to K1 (1M stepped, air rows, C=16 and C=64 x drift "
+          "0.4/0.9/1.8), and in band mode on 4 x 31 rows of the padded 1M state")
+
+    # K12: the full-window compaction of variants 2 and 3, both routed to it;
+    # the same states, and a crowded small grid whose counts exceed C.
+    def check_k12(label, planes, sp):
+        x, cx = rebin_compact(planes, sp)
+        y, cy = rebin_compact_plain(planes, sp, fills)
+        require(same(x, y) and torch.equal(cx, cy),
+                f"K12 ({label}) differs from its plain version")
+        for v in (2, 3):
+            z, cz = rebin_planes(planes, sp, variant=v)
+            require(same(x, z) and torch.equal(cx, cz), f"variant {v} ({label}) is not K12's")
+        return cx
+
+    check_k12("1M stepped", rin, spec)
+    check_k12("air rows", air, spec)
+    for C in (16, 64):
+        small = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=7, capacity=C)
+        for drift in (0.4, 0.9, 1.8):
+            check_k12(f"C={C}, drift {drift}",
+                      demo_planes(torch, small, 0.7, drift, seed=C + int(10 * drift),
+                                  device="cuda"), small)
+    small16 = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=7, capacity=16)
+    crowd = check_k12("crowded", demo_planes(torch, small16, 0.95, 1.8, seed=95,
+                                             device="cuda"), small16)
+    require(int(crowd.max()) > 16, f"the crowded grid never overflowed ({int(crowd.max())})")
+    k12_out, k12_cnt = rebin_compact(rin, spec)
+    k12_err = max(max_abs(x, y) for x, y in zip(k12_out, rebin_compact_plain(rin, spec, fills)[0]))
+    record("K12", "K12 full-window compaction (variants 2, 3)",
+           "rust_particle_system_tpu_torch/csrc/rebin_compact.cu",
+           "rust_particle_system_tpu/ops/pallas/rebin.py:124", k12_err,
+           cuda_ms(lambda: rebin_compact(rin, spec), 20),
+           cuda_ms(lambda: rebin_compact_plain(rin, spec, fills), 3),
+           nbytes(*rin, *k12_out, k12_cnt), 0)
+    print(f"phase 2: K12 bit-equal to its plain version and as variants 2 and 3 (1M stepped, "
+          f"air rows, C=16 and C=64 x drift 0.4/0.9/1.8, crowded: counts up to "
+          f"{int(crowd.max())} > C=16)")
 
     npx, npy, nvx0, nvy0, _ = a
 
@@ -1065,6 +1220,70 @@ def main() -> int:
     require(int(sq.live.sum()) == 200_000, "unfused pack2 frames lost particles")
     print(f"phase 3: 5 pack2 plane_frame(fuse_tail=False) frames ok; launches {launches}")
 
+    # step_v5: plane_step(variant=5) at 1M from the phase-2 state, each frame
+    # bit-equal to variant 6's (computed first, outside the counted window).
+    fields = ("px", "py", "vx", "vy", "idsf")
+    ref6 = [ps]
+    for _ in range(4):
+        ref6.append(R.plane_step(ref6[-1], params, spec))
+    reset()
+    s5 = ps
+    for i in range(4):
+        s5 = R.plane_step(s5, params, spec, variant=5)
+        require(all(torch.equal(getattr(s5, f), getattr(ref6[i + 1], f)) for f in fields)
+                and s5.frame == ref6[i + 1].frame,
+                f"plane_step(variant=5) frame {i + 1} differs from variant 6's")
+    torch.cuda.synchronize()
+    launches = read("step_v5")
+    require(launches["K9"] == 8 and launches["K1"] == launches["K7"] == launches["K12"] == 0
+            and launches["K2"] == launches["K3"] == 4,
+            f"the variant-5 path did not run K9 in place of K1: {launches}")
+    require(int(s5.lost) == 0 and int(s5.live.sum()) == N_1M, "variant 5 lost particles")
+    reset()
+    f5, img5 = R.plane_frame(ps, params, spec, rs_main, bounds_static=BOUNDS, variant=5)
+    torch.cuda.synchronize()
+    launches = read("frame_v5")
+    require(launches["K9"] == 2 and launches["K4"] == 1 and launches["K1"] == 0,
+            f"plane_frame(variant=5) did not run K9 and K4: {launches}")
+    f6, img6 = R.plane_frame(ps, params, spec, rs_main, bounds_static=BOUNDS)
+    require(torch.equal(img5, img6) and all(torch.equal(getattr(f5, f), getattr(f6, f))
+                                            for f in fields),
+            "plane_frame(variant=5) differs from variant 6's")
+    print(f"phase 3: plane_step(variant=5) at 1M, 4 frames bit-equal to variant 6; "
+          f"plane_frame(variant=5) state and 1080p image bit-equal; launches "
+          f"{paths['step_v5']}, {launches}")
+
+    # step_v4, step_v3, step_v2: the 50k scene through the lossy variants.
+    scene = Simulation(SPHFluid.create(n=50_000))
+    scene.update_params(gravity=400.0)
+    lossy = {}
+    for v in (4, 3, 2):
+        reset()
+        st = scene.state
+        for _ in range(65):  # 5 warm-up + 60 live frames
+            st = R.plane_step(st, scene.params, scene.model.grid, variant=v)
+        torch.cuda.synchronize()
+        launches = read(f"step_v{v}")
+        kern, other = ("K9", "K12") if v == 4 else ("K12", "K9")
+        require(launches[kern] == (120 if v == 4 else 60) and launches[other] == 0
+                and launches["K1"] == launches["K7"] == launches["K3"] == 0
+                and launches["K3b"] == 60,
+                f"plane_step(variant={v}) did not run {kern} and the raw walk alone: {launches}")
+        live = st.live
+        n_live, n_lost = int(live.sum()), int(st.lost)
+        require(n_live + n_lost == 50_000, f"variant {v}: live {n_live} + lost {n_lost} != n")
+        b = BOUNDS
+        require(bool(torch.isfinite(st.vx[live]).all() and torch.isfinite(st.vy[live]).all())
+                and bool((st.px[live] >= b[0]).all() and (st.px[live] <= b[1]).all()
+                         and (st.py[live] >= b[2]).all() and (st.py[live] <= b[3]).all()),
+                f"variant {v}: live particles not finite or out of bounds")
+        lossy[v] = (st, n_lost)
+    require(all(torch.equal(getattr(lossy[2][0], f), getattr(lossy[3][0], f)) for f in fields),
+            "variant 2's planes differ from variant 3's")
+    print(f"phase 3: the 50k scene, 60 live frames at variants 4/3/2: finite, in bounds, live + "
+          f"lost == 50000 (lost {lossy[4][1]} / {lossy[3][1]} / {lossy[2][1]}); v2 planes "
+          f"bit-equal to v3; launches {paths['step_v4']}, {paths['step_v3']}, {paths['step_v2']}")
+
     # nbody, flow, attractor: the CLI with --model, its PNG and --stats.
     model_runs = {"nbody": (N_NBODY, 30), "flow": (N_1M, 30), "attractor": (65_536, 30)}
     for m, (n, frames) in model_runs.items():
@@ -1096,6 +1315,8 @@ def main() -> int:
     rows["K6f"]["launches"] = paths["pack2"]["K6f"]
     rows["K6r"]["launches"] = paths["pack2_unfused"]["K6r"]
     rows["K8"]["launches"] = paths["nbody"]["K8"]
+    rows["K9"]["launches"] = paths["step_v5"]["K9"]
+    rows["K12"]["launches"] = paths["step_v3"]["K12"]
 
     # ---------------- phase 4: 1M uniform, C=128 ----------------
     p4 = make_params(bounds=BOUNDS)
@@ -1150,7 +1371,40 @@ def main() -> int:
         require(bool(torch.isfinite(simm.state.pos).all()), f"{m} frames not finite")
     print(f"phase 4: ms/frame {json.dumps(ms_models)} (nbody n={N_NBODY}, flow n={N_1M}, "
           f"attractor n=65536) [{card}]")
-    order = ("K5", "K1", "K7", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r", "K8")
+    # The variant-5 rebin at 1M stage by stage: CUDA events over a host loop
+    # (host-bound where the stage's launches outrun its device work), and
+    # the device time of its kernels by the profiler; K1 and variant 4 beside.
+    stages = {
+        "K9 pass Y": lambda: hole_fill_pass(*passY),
+        "merge Y": lambda: retention_merge(flats1, midY, accY, spec, spec.gw, True),
+        "K9 pass X": lambda: hole_fill_pass(*passX),
+        "merge X": lambda: retention_merge(mergedY, outX, accX, spec, 1, False),
+        "rebin v5": lambda: rebin_planes(rin, spec, variant=5),
+        "rebin v6 (K1)": lambda: rebin_planes(rin, spec),
+        "rebin v4": lambda: rebin_planes(rin, spec, variant=4),
+        "rebin v3 (K12)": lambda: rebin_planes(rin, spec, variant=3)}
+    rebin_ms = {k: cuda_ms(fn, 20) for k, fn in stages.items()}
+    rebin_dev = {k: device_ms(fn, 10) for k, fn in stages.items()}
+    print(f"phase 4: rebin at 1M, ms (events) {json.dumps(rebin_ms)}; device ms (profiler) "
+          f"{json.dumps(rebin_dev)} [{card}]")
+    # plane_step at 1M per rebin variant, in turns from one state.
+    st6 = uniform_plane_state(torch, spec, N_1M, seed=9)
+    st6 = dataclasses.replace(st6, frame=p4.shader_delay)
+    for _ in range(5):
+        st6 = R.plane_step(st6, p4, spec)
+    step_ms = {6: [], 5: [], 4: []}
+    for v in (6, 5, 4, 4, 5, 6):
+        held = [st6]
+
+        def frame_v(v=v, held=held):
+            held[0] = R.plane_step(held[0], p4, spec, variant=v)
+
+        step_ms[v].append(cuda_ms(frame_v, 40))
+        require(int(held[0].live.sum()) + int(held[0].lost) == N_1M, f"variant {v}: live + lost")
+    print(f"phase 4: 1M uniform C=128 plane_step ms/frame by rebin variant (in turns) "
+          f"{json.dumps(step_ms)} [{card}]")
+    order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r",
+             "K8")
     for k in order:
         r = rows[k]
         print(f"phase 4: {r['name']}: {r['ms']:.3f} ms kernel vs {r['plain_ms']:.3f} ms "
@@ -1164,7 +1418,9 @@ def main() -> int:
             "ms_per_frame_1m": ms1m, "ms_render_1m": ms_render,
             "ms_step_and_render_1m": ms_fused, "scene_300_s": scene_s,
             "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms,
-            "ms_per_frame_models": ms_models, "ms_mesh": mesh_ms, "paths": paths},
+            "ms_per_frame_models": ms_models, "ms_mesh": mesh_ms, "paths": paths,
+            "ms_rebin_1m": rebin_ms, "device_ms_rebin_1m": rebin_dev,
+            "ms_per_frame_1m_by_variant": step_ms},
             indent=1))
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": device}))

@@ -19,6 +19,24 @@ struct Fills {
   float v[kMaxChannels];
 };
 
+// The k channel planes of a call, passed by value (channel 0 is x, 1 is y).
+struct InPlanes {
+  const float* p[kMaxChannels];
+};
+struct OutPlanes {
+  float* p[kMaxChannels];
+};
+
+// Runs f(ch) for ch < k.  The loop is unrolled to kMaxChannels so that
+// in.p[ch], out.p[ch] and fills.v[ch] index the kernel parameters with
+// constants: a run-time index would copy the parameter structs to local memory.
+template <class F>
+__device__ __forceinline__ void for_channels(int k, F f) {
+#pragma unroll
+  for (int ch = 0; ch < kMaxChannels; ++ch)
+    if (ch < k) f(ch);
+}
+
 // clip(int(floor((v - lo) / width)), 0, n - 1): the IEEE expression of the
 // JAX package's keying (ops/grid.py::cell_coords, rebin.py:489-494).  Built
 // without --use_fast_math, so '/' is the correctly rounded division.

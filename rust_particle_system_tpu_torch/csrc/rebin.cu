@@ -51,31 +51,16 @@
 namespace {
 
 using rps::cell_of;
+using rps::for_channels;
+using rps::InPlanes;
 using rps::kLiveBelow;
+using rps::OutPlanes;
 
 struct Geom {
   int k, gh, gw, C;
   int row0, rows, in_off;  // own global rows [row0, row0 + rows); input row offset
   float x_min, y_min, cell_w, cell_h;
 };
-
-// The k channel planes, passed by value (channel 0 is x, channel 1 is y).
-struct InPlanes {
-  const float* p[rps::kMaxChannels];
-};
-struct OutPlanes {
-  float* p[rps::kMaxChannels];
-};
-
-// Runs f(ch) for ch < k.  The loop is unrolled to kMaxChannels so that
-// in.p[ch], out.p[ch] and fills.v[ch] index the kernel parameters with
-// constants: a run-time index would copy the parameter structs to local memory.
-template <class F>
-__device__ __forceinline__ void for_channels(int k, F f) {
-#pragma unroll
-  for (int ch = 0; ch < rps::kMaxChannels; ++ch)
-    if (ch < k) f(ch);
-}
 
 // Slot s of cell (r, c), global row r, in the input planes.
 __device__ __forceinline__ size_t in_index(const Geom& g, int r, int c, int s) {

@@ -5,6 +5,8 @@ version beside it for CPU tensors; each counts its launches in ``.launches``.
 
     K1  rebin.rebin_planes                  csrc/rebin.cu
     K7  rebin.rebin_planes_band             csrc/rebin.cu (K1's kernels on a band)
+    K9  rebin.hole_fill_pass                csrc/rebin_pass.cu (rebin variants 4, 5)
+    K12 rebin.rebin_compact                 csrc/rebin_compact.cu (rebin variants 2, 3)
     K2  sph.density_planes                  csrc/sph.cu
     K3  sph.force_planes_integrated         csrc/sph.cu
     K3b sph.force_planes                    csrc/sph.cu

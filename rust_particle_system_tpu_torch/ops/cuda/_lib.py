@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rps_plane_build": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rps_rebin": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_P],
+    "rps_hole_fill_pass": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_P],
+    "rps_rebin_compact": [_P] * 4 + [_I] * 4 + [_F] * 4 + [_P],
     "rps_density": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
     "rps_force_integrated": [_P] * 13 + [_I] * 5 + [_F] * 9 + [_P],
     "rps_force": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],

@@ -1,24 +1,38 @@
 """Plane-resident rebin: the per-frame neighbour-structure rebuild without a sort.
 
-Counterpart of ``rust_particle_system_tpu/ops/pallas/rebin.py``, variant 6 (the
-lossless row-fused hole-fill; bit-identical to variant 5) only.  Kernel K1
-(``csrc/rebin.cu``) replaces the Pallas ``_make_kernel_v6`` on the whole grid
-(:func:`rebin_planes`, JAX ``_rebin_v6``); kernel K7, the same CUDA kernels
-on one band's slab with its ghost rows and global row offset, replaces it as
-driven by ``_rebin_v6_band`` (:func:`rebin_planes_band`, for the band-sharded
-mesh).
+Counterpart of ``rust_particle_system_tpu/ops/pallas/rebin.py``, every variant
+of ``rebin_planes``:
 
-Contract (pinned bit-for-bit against the JAX package by the tests): a cell's
-stayers keep their slots; movers whose (clamped, one-cell) hop lands in a
-neighbour fill that neighbour's DEAD slots in candidate order — pass Y takes
-row r-1 then row r+1, pass X column c-1 then column c+1, slot order within
-each; a mover that no neighbour adopts is retained in its slot.  Nothing is
-ever dropped.  ``counts`` are the per-cell live totals after both passes.
+* variant 6 (default), the lossless row-fused hole-fill: kernel K1
+  (``csrc/rebin.cu``) replaces the Pallas ``_make_kernel_v6`` on the whole grid
+  (:func:`rebin_planes`, JAX ``_rebin_v6``); kernel K7, the same CUDA kernels
+  on one band's slab with its ghost rows and global row offset, replaces it as
+  driven by ``_rebin_v6_band`` (:func:`rebin_planes_band`, for the
+  band-sharded mesh);
+* variants 4 (lossy) and 5 (lossless, bit-identical to 6), the separable
+  hole-fill: two passes of kernel K9 (``csrc/rebin_pass.cu``,
+  :func:`hole_fill_pass`, JAX ``_make_kernel_v4`` driven by
+  ``_hole_fill_pass``), pass Y then pass X, each followed for variant 5 by
+  the retention merge in torch (:func:`retention_merge`, XLA code in JAX);
+* variants 2 and 3, the full-window compaction: kernel K12
+  (``csrc/rebin_compact.cu``, :func:`rebin_compact`, JAX ``_make_kernel_v2``
+  and ``_make_kernel_v3``, which compute the same function).
+
+Lossless contract (variants 5 and 6, pinned bit-for-bit against the JAX
+package by the tests): a cell's stayers keep their slots; movers whose
+(clamped, one-cell) hop lands in a neighbour fill that neighbour's DEAD slots
+in candidate order — pass Y takes row r-1 then row r+1, pass X column c-1
+then column c+1, slot order within each; a mover that no neighbour adopts is
+retained in its slot.  Nothing is ever dropped.  ``counts`` are the per-cell
+live totals after both passes.  Variant 4 fills every slot that does not stay
+and drops what finds no hole; variants 2/3 compact each cell's candidates to
+its low slots and count them (counts may exceed C: the overflow is dropped).
 
 K1 is memory-bound on the H100 (two passes of ~10 plane reads and 5 writes per
 slot); its ranks come from warp ballots and popcounts instead of the TPU's
 triangular and one-hot matmuls, and its two passes are two launches because a
 whole grid row (548 KB at the main-path shape) exceeds a block's shared memory.
+K9 and K12 rank the same way, one block per destination cell.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from ..grid import GridSpec, cell_index
 from . import _lib
 
 SENTINEL = 1.0e6  # dead-slot parking position
+VARIANTS = (2, 3, 4, 5, 6)
 
 
 def _fills(planes, fills) -> tuple:
@@ -45,13 +60,11 @@ def _fills(planes, fills) -> tuple:
     return fills
 
 
-def require_variant_6(variant: int) -> None:
-    """Only the lossless variant 6 of the rebin is ported."""
-    if variant != 6:
-        raise NotImplementedError(
-            f"rebin variant {variant} is not ported: variants 4 and 5 are the "
-            f"separable hole-fill kernel K9 (rebin.py:_make_kernel_v4), still to "
-            f"port; the port implements the lossless variant 6 (bit-identical to 5)")
+def check_variant(variant: int) -> None:
+    """The rebin variants of the JAX ``rebin_planes``: 2 and 3 (full-window
+    compaction), 4 (lossy hole-fill), 5 and 6 (lossless hole-fill)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"rebin variant {variant} is not one of {VARIANTS}")
 
 
 def _shift(p: torch.Tensor, d: int, dim: int, fill: float) -> torch.Tensor:
@@ -67,16 +80,17 @@ def _shift(p: torch.Tensor, d: int, dim: int, fill: float) -> torch.Tensor:
     return out
 
 
-def _hole_fill(own, win, keep, stay, fills):
+def _hole_fill(own, win, keep, stay, fills, holes=None):
     """One hole-fill pass over every cell at once.
 
-    ``own``: per-channel ``[gh, gw, C]``; ``win``: per-channel ``[gh, gw, 2C]``
-    candidate windows; ``keep`` ``[gh, gw, 2C]`` (candidates that move here);
-    ``stay`` ``[gh, gw, C]``.  The candidate of window rank j fills the own dead
-    slot of rank j while j < #holes.  Returns (per-channel outputs, the adopted
-    mask over the window)."""
+    ``own``: per-channel ``[..., C]``; ``win``: per-channel ``[..., 2C]``
+    candidate windows; ``keep`` ``[..., 2C]`` (candidates that move here);
+    ``stay`` ``[..., C]``; ``holes`` ``[..., C]`` (default: the dead own
+    slots).  The candidate of window rank j fills the hole of rank j while
+    j < #holes; stayers keep their slot and every other slot takes the fill.
+    Returns (per-channel outputs, the adopted mask over the window)."""
     C = own[0].shape[-1]
-    dead = ~(own[0] < 0.5 * SENTINEL)
+    dead = ~(own[0] < 0.5 * SENTINEL) if holes is None else holes
     arank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
     hrank = torch.cumsum(dead.to(torch.int32), dim=-1) - 1
     n_arr = keep.sum(dim=-1, keepdim=True)
@@ -178,9 +192,16 @@ def _band_slab(planes, fills: tuple, lo2, lo1, hi1):
     return out
 
 
-def rebin_planes_plain(planes, spec: GridSpec, fills=None):
-    """Plain PyTorch version of K1 over all cells at once."""
+def rebin_planes_plain(planes, spec: GridSpec, fills=None, variant: int = 6):
+    """Plain PyTorch version of :func:`rebin_planes`: K1's over all cells at
+    once (variant 6), K9's two passes with the retention merges (4, 5), K12's
+    (2, 3)."""
+    check_variant(variant)
     fills = _fills(planes, fills)
+    if variant in (2, 3):
+        return rebin_compact_plain(planes, spec, fills)
+    if variant in (4, 5):
+        return _rebin_separable(planes, spec, fills, variant == 5, hole_fill_pass_plain)
     gw, C = spec.gw, spec.capacity
     rows = lambda n, f: torch.full((n, gw, C), f, dtype=torch.float32,
                                    device=planes[0].device)
@@ -194,6 +215,132 @@ def rebin_planes_band_plain(planes, spec: GridSpec, fills, row0: int, lo2, lo1, 
     fills = _fills(planes, fills)
     return _rebin_rows_plain(_band_slab(planes, fills, lo2, lo1, hi1), spec, fills,
                              row0)
+
+
+# ---------------- K9: one separable hole-fill pass (variants 4 and 5) ----------------
+
+
+def _keys(x, y, spec: GridSpec):
+    return (cell_index(x, spec.x_min, spec.cell_width, spec.gw),
+            cell_index(y, spec.y_min, spec.cell_size, spec.gh))
+
+
+def _flat_cells(nc: int, spec: GridSpec, row0: int, device):
+    """(column, global row) of each flat cell, as ``[nc, 1]`` columns."""
+    cell = torch.arange(nc, dtype=torch.int32, device=device)[:, None]
+    return cell % spec.gw, cell // spec.gw + row0
+
+
+def hole_fill_pass_plain(flats, spec: GridSpec, fills, shift: int, row_only: bool,
+                         lossless: bool, ghosts=None, row0: int = 0):
+    """Plain PyTorch version of K9 (JAX ``_hole_fill_pass`` + ``_make_kernel_v4``).
+
+    The window of flat cell i is FLAT: group 0 = cell i - shift, group 1 =
+    cell i + shift; past the ends, the ghost blocks ``ghosts[c] = (lo, hi)``
+    (``[shift, C]`` each) or the fill."""
+    nc, C = flats[0].shape
+    live = lambda x: x < 0.5 * SENTINEL
+
+    def side(c, d):
+        p = flats[c]
+        g = None if ghosts is None else ghosts[c][0 if d < 0 else 1]
+        blk = (torch.full((abs(d), C), fills[c], dtype=p.dtype, device=p.device)
+               if g is None else g.reshape(abs(d), C))
+        return torch.cat([blk, p[:d]]) if d < 0 else torch.cat([p[d:], blk])
+
+    win = [torch.cat([side(c, -shift), side(c, shift)], dim=1) for c in range(len(flats))]
+    cx, cy = _flat_cells(nc, spec, row0, flats[0].device)
+    kxw, kyw = _keys(win[0], win[1], spec)
+    g0 = torch.arange(2 * C, device=cx.device) < C
+    if not lossless:
+        keep = kyw == cy
+        if not row_only:
+            keep = keep & (kxw == cx)
+    elif row_only:  # the clamped hop toward the key row
+        keep = torch.where(g0, kyw >= cy, kyw <= cy)
+    else:  # rejects the flat shift's wrap at the row's ends
+        keep = (kyw == cy) & torch.where(g0, (kxw >= cx) & (cx > 0),
+                                         (kxw <= cx) & (cx < spec.gw - 1))
+    keep = keep & live(win[0])
+    olive = live(flats[0])
+    kxo, kyo = _keys(flats[0], flats[1], spec)
+    if row_only:
+        stay = kyo == cy
+    elif lossless:  # row-transit slots stay and retry rows next frame
+        stay = (kyo != cy) | (kxo == cx)
+    else:
+        stay = (kyo == cy) & (kxo == cx)
+    stay = stay & olive
+    holes = ~olive if lossless else ~stay
+    out, adopted = _hole_fill(flats, win, keep, stay, fills, holes)
+    counts = stay.sum(-1) + torch.minimum(keep.sum(-1), holes.sum(-1))
+    return out, counts.to(torch.int32), adopted if lossless else None
+
+
+def retention_merge(in_flats, out_flats, adopted, spec: GridSpec, shift: int,
+                    row_only: bool, row0: int = 0, extra_adopted=None):
+    """The lossless rule after a pass (JAX ``_retention_merge``): a mover of
+    this pass that no neighbour adopted keeps its source slot.
+
+    ``adopted`` ``[nc, 2C]`` is in destination layout: group 0 lane j of cell
+    i says that i adopted slot j of cell i - shift, group 1 slot j of cell
+    i + shift.  ``extra_adopted`` ``[nc, C]`` adds adoptions made elsewhere
+    (on the band-sharded mesh, by the neighbour bands), already in source
+    layout."""
+    nc, C = in_flats[0].shape
+    took = torch.zeros((nc, C), dtype=torch.bool, device=adopted.device)
+    took[:nc - shift] |= adopted[shift:, :C]
+    took[shift:] |= adopted[:nc - shift, C:]
+    if extra_adopted is not None:
+        took |= extra_adopted.to(torch.bool)
+    x, y = in_flats[0], in_flats[1]
+    kx, ky = _keys(x, y, spec)
+    cx, cy = _flat_cells(nc, spec, row0, x.device)
+    mover = (ky != cy) if row_only else (ky == cy) & (kx != cx)
+    retain = mover & (x < 0.5 * SENTINEL) & ~took
+    return [torch.where(retain, i, o) for i, o in zip(in_flats, out_flats)]
+
+
+# ---------------- K12: the full-window compaction (variants 2 and 3) ----------------
+
+
+def rebin_compact_plain(planes, spec: GridSpec, fills):
+    """Plain PyTorch version of K12: each cell's keyed candidates over its 9C
+    window (JAX rebin.py:983-1006, flat shifts), compacted in window order."""
+    fills = _fills(planes, fills)
+    gh, gw, C = planes[0].shape
+    nc = gh * gw
+    dev = planes[0].device
+    flats = [p.reshape(nc, C) for p in planes]
+    cell = torch.arange(nc, device=dev)
+    srcs = []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            j = cell + dx
+            f = j + dy * gw
+            srcs.append(torch.where((j >= 0) & (j < nc) & (f >= 0) & (f < nc), f, -1))
+    src = torch.stack(srcs, 1)[:, :, None]  # [nc, 9, 1]; -1: a dead lane
+
+    def window(c):
+        w = flats[c][src.clamp(min=0), torch.arange(C, device=dev)]  # [nc, 9, C]
+        return torch.where(src >= 0, w, fills[c]).reshape(nc, 9 * C)
+
+    win = [window(c) for c in range(len(planes))]
+    cx, cy = _flat_cells(nc, spec, 0, dev)
+    kx, ky = _keys(win[0], win[1], spec)
+    keep = (win[0] < 0.5 * SENTINEL) & (kx == cx) & (ky == cy)
+    rank = torch.cumsum(keep.to(torch.int32), -1) - 1
+    dest = torch.where(keep & (rank < C), rank, C).long()  # slot C: a dump slot
+    outs = []
+    for w, f in zip(win, fills):
+        o = torch.full((nc, C + 1), f, dtype=w.dtype, device=dev)
+        o.scatter_(1, dest, w)
+        outs.append(o[:, :C].reshape(gh, gw, C))
+    return outs, keep.sum(-1, dtype=torch.int32)
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def _rebin_launch(inputs, spec: GridSpec, fills: tuple, row0: int, rows: int,
@@ -210,14 +357,108 @@ def _rebin_launch(inputs, spec: GridSpec, fills: tuple, row0: int, rows: int,
     out = [torch.empty((rows, gw, C), dtype=torch.float32, device=dev)
            for _ in range(k)]
     counts = torch.empty(rows * gw, dtype=torch.int32, device=dev)
-    ptrs = ctypes.c_void_p * k
-    lib = _lib.library()
-    _lib.check("rps_rebin", lib.rps_rebin(
-        ptrs(*(p.data_ptr() for p in inputs)), mid.data_ptr(),
-        ptrs(*(p.data_ptr() for p in out)), counts.data_ptr(),
+    _lib.check("rps_rebin", _lib.library().rps_rebin(
+        _ptrs(inputs), mid.data_ptr(), _ptrs(out), counts.data_ptr(),
         (ctypes.c_float * k)(*fills), k, spec.gh, gw, C, row0, rows, in_off,
         spec.x_min, spec.y_min, spec.cell_width, spec.cell_size, _lib.stream()))
     return out, counts
+
+
+def hole_fill_pass(flats, spec: GridSpec, fills, shift: int, row_only: bool,
+                   lossless: bool, ghosts=None, row0: int = 0):
+    """Kernel K9: one separable hole-fill pass over flat ``[nc, C]`` planes
+    (the ``nc = R * gw`` cells of grid rows row0 .. row0 + R - 1 of ``spec``).
+
+    ``shift``: gw for pass Y (``row_only``: the row test), 1 for pass X.
+    ``lossless``: variant 5's rules (holes are the dead slots, clamped hops,
+    the adoption mask returned) instead of variant 4's.  ``ghosts``: per
+    channel ``(lo, hi)``, each ``[shift, C]`` (a neighbour band's edge row):
+    the window lanes before the first and after the last cell; default, the
+    fill.  Returns (k ``[nc, C]`` planes, ``[nc]`` int32 live counts, the
+    ``[nc, 2C]`` bool adoption mask in destination layout, or None when
+    lossy).  Launches K9 for CUDA tensors; runs the plain version for CPU
+    tensors."""
+    nc, C = flats[0].shape
+    if C != spec.capacity or nc % spec.gw or not 0 <= row0 <= spec.gh - nc // spec.gw:
+        raise ValueError(f"[{nc}, {C}] flat planes at row {row0} do not fit {spec}")
+    if not 1 <= shift <= nc:
+        raise ValueError(f"shift {shift} outside [1, {nc}]")
+    if ghosts is not None and (len(ghosts) != len(flats) or any(
+            g.numel() != shift * C for pair in ghosts for g in pair)):
+        raise ValueError(f"ghosts: one (lo, hi) pair of [{shift}, {C}] per channel")
+    fills = _fills(flats, fills)
+    if _lib.dispatch(flats[0]) == "plain":
+        return hole_fill_pass_plain(flats, spec, fills, shift, row_only, lossless,
+                                    ghosts, row0)
+    k = len(flats)
+    if not 2 <= k <= 8:
+        raise ValueError("the rebin kernels take 2..8 channels")
+    _lib.require_cuda_planes(*flats)
+    lo = hi = None
+    if ghosts is not None:
+        lo = [g[0].reshape(shift, C).contiguous() for g in ghosts]
+        hi = [g[1].reshape(shift, C).contiguous() for g in ghosts]
+        _lib.require_cuda_planes(flats[0][:shift], *lo, *hi)
+    dev = flats[0].device
+    out = [torch.empty((nc, C), dtype=torch.float32, device=dev) for _ in range(k)]
+    counts = torch.empty(nc, dtype=torch.int32, device=dev)
+    adopted = (torch.empty((nc, 2 * C), dtype=torch.uint8, device=dev) if lossless
+               else None)
+    _lib.check("rps_hole_fill_pass", _lib.library().rps_hole_fill_pass(
+        _ptrs(flats), None if lo is None else _ptrs(lo), None if hi is None else _ptrs(hi),
+        _ptrs(out), counts.data_ptr(), None if adopted is None else adopted.data_ptr(),
+        (ctypes.c_float * k)(*fills), k, nc, spec.gw, spec.gh, C, shift, row0,
+        int(row_only), int(lossless), spec.x_min, spec.y_min, spec.cell_width,
+        spec.cell_size, _lib.stream()))
+    hole_fill_pass.launches += 1
+    return out, counts, None if adopted is None else adopted.view(torch.bool)
+
+
+hole_fill_pass.launches = 0
+
+
+def rebin_compact(planes, spec: GridSpec, fills=None):
+    """Kernel K12: the full-window compaction of ``rebin_planes(variant=2|3)``.
+    Returns (k ``[gh, gw, C]`` planes, ``[gh*gw]`` int32 candidate counts,
+    which exceed C where candidates were dropped).  Launches K12 for CUDA
+    tensors; runs the plain version for CPU tensors."""
+    if tuple(planes[0].shape) != (spec.gh, spec.gw, spec.capacity):
+        raise ValueError(f"planes {tuple(planes[0].shape)} do not match {spec}")
+    fills = _fills(planes, fills)
+    if _lib.dispatch(planes[0]) == "plain":
+        return rebin_compact_plain(planes, spec, fills)
+    k = len(planes)
+    if not 2 <= k <= 8:
+        raise ValueError("the rebin kernels take 2..8 channels")
+    _lib.require_cuda_planes(*planes)
+    out = [torch.empty_like(planes[0]) for _ in range(k)]
+    counts = torch.empty(spec.num_cells, dtype=torch.int32, device=planes[0].device)
+    _lib.check("rps_rebin_compact", _lib.library().rps_rebin_compact(
+        _ptrs(planes), _ptrs(out), counts.data_ptr(), (ctypes.c_float * k)(*fills), k,
+        spec.gh, spec.gw, spec.capacity, spec.x_min, spec.y_min, spec.cell_width,
+        spec.cell_size, _lib.stream()))
+    rebin_compact.launches += 1
+    return out, counts
+
+
+rebin_compact.launches = 0
+
+
+def _rebin_separable(planes, spec: GridSpec, fills: tuple, lossless: bool, hole_fill):
+    """Variants 4 and 5: pass Y (``hole_fill``: K9 or its plain version; shift
+    gw, the row test), pass X (shift 1), each followed, when ``lossless``, by
+    the retention merge; the lossless counts are recounted from the merged
+    planes (JAX rebin.py:961-981)."""
+    gh, gw, C = planes[0].shape
+    flats = [p.reshape(gh * gw, C) for p in planes]
+    mid, _, adopted = hole_fill(flats, spec, fills, gw, True, lossless)
+    if lossless:
+        mid = retention_merge(flats, mid, adopted, spec, gw, True)
+    out, counts, adopted = hole_fill(mid, spec, fills, 1, False, lossless)
+    if lossless:
+        out = retention_merge(mid, out, adopted, spec, 1, False)
+        counts = (out[0] < 0.5 * SENTINEL).sum(-1, dtype=torch.int32)
+    return [o.reshape(gh, gw, C) for o in out], counts
 
 
 def rebin_planes(planes, spec: GridSpec, fills=None, variant: int = 6):
@@ -225,14 +466,21 @@ def rebin_planes(planes, spec: GridSpec, fills=None, variant: int = 6):
 
     ``planes``: k ``[gh, gw, C]`` f32 planes (dead slots carry SENTINEL in x/y);
     ``fills``: per-channel dead-slot fill (default SENTINEL for x/y, else 0).
-    Returns ``(new_planes, counts)`` with counts ``[gh*gw]`` int32.  Launches K1
-    for CUDA tensors; runs the plain version for CPU tensors."""
-    require_variant_6(variant)
+    Returns ``(new_planes, counts)`` with counts ``[gh*gw]`` int32: the live
+    totals (variants 4-6) or the candidate totals (2, 3; see the module
+    docstring).  Variant 6 launches K1, 4 and 5 two K9 passes, 2 and 3 K12 for
+    CUDA tensors; each runs its plain version for CPU tensors.  Any other
+    variant raises ValueError."""
+    check_variant(variant)
     if tuple(planes[0].shape) != (spec.gh, spec.gw, spec.capacity):
         raise ValueError(f"planes {tuple(planes[0].shape)} do not match {spec}")
     fills = _fills(planes, fills)
     if _lib.dispatch(planes[0]) == "plain":
-        return rebin_planes_plain(planes, spec, fills)
+        return rebin_planes_plain(planes, spec, fills, variant)
+    if variant in (2, 3):
+        return rebin_compact(planes, spec, fills)
+    if variant in (4, 5):
+        return _rebin_separable(planes, spec, fills, variant == 5, hole_fill_pass)
     out = _rebin_launch(planes, spec, fills, 0, spec.gh, 0)
     rebin_planes.launches += 1
     return out

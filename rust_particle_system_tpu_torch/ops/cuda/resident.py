@@ -3,11 +3,12 @@
 Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
 single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
 K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
-the lossless rebin K1, the defer mask, the density walk K2, the pressure terms,
-the fused force walk K3 with the frame tail, or with ``fuse_tail=False`` the
-raw walk K3b and the tail in torch), ``plane_frame`` (a frame plus its image
-through the plane rasterizer K4), ``render_plane_state`` and
-``to_particle_state``.
+the rebin of the chosen ``variant``: the lossless K1 by default, two K9 passes
+for 4 and 5, K12 for 2 and 3; for 5 and 6 the defer mask, the density walk K2,
+the pressure terms, the fused force walk K3 with the frame tail, or with
+``fuse_tail=False`` the raw walk K3b and the tail in torch; for 2-4 no defer
+mask and always the raw walk), ``plane_frame`` (a frame plus its image through
+the plane rasterizer K4), ``render_plane_state`` and ``to_particle_state``.
 
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
@@ -26,7 +27,7 @@ from ...core.state import ParticleState
 from ...render.splat_planes import drifted_patch_margin, splat_from_planes
 from ..grid import GridSpec, build_grid, cell_index
 from .plane_build import cell_planes_aos
-from .rebin import SENTINEL, rebin_planes
+from .rebin import SENTINEL, check_variant, rebin_planes
 from .sph_step import _forces_from_cells, _velocities_from_cells
 
 MAX_IDS = 1 << 24  # ids ride an f32 channel: exact up to 2^24
@@ -201,16 +202,19 @@ def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
 
 
 def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: bool,
-                       row0: int = 0, halo=None):
+                       row0: int = 0, halo=None, defer: bool = True):
     """The frame after the rebin: the defer mask, the walks (K2 + K3, or K3b
     and the torch tail with ``fuse_tail=False``; K6 for ``spec.pack2``) and
     the re-parked ids, on the rebinned channels (px, py, vx, vy, idsf).  On a
     band's slab, ``row0`` is its first global row and ``halo`` brings the
-    walks' ghost rows (see :mod:`.sph_step`).  Returns the new (px, py, vx,
-    vy, idsf) planes and the walk x plane (deferred slots parked)."""
+    walks' ghost rows (see :mod:`.sph_step`).  ``defer=False`` (rebin
+    variants 2-4, JAX resident.py:297-300) walks every live slot where it is,
+    through the raw walk and the torch tail whatever ``fuse_tail`` says.
+    Returns the new (px, py, vx, vy, idsf) planes and the walk x plane
+    (deferred slots parked)."""
     npx, npy, nvx0, nvy0, nidsf = rebinned
-    fpx, fpy = walk_positions(npx, npy, spec, row0)
-    if fuse_tail:
+    fpx, fpy = walk_positions(npx, npy, spec, row0) if defer else (npx, npy)
+    if fuse_tail and defer:
         out = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec, params, halo)
     else:
         nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params, halo)
@@ -219,28 +223,34 @@ def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: b
 
 
 def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
-                  fuse_tail: bool = True) -> PlaneState:
+                  fuse_tail: bool = True, variant: int = 6) -> PlaneState:
     """One live physics frame: gravity + predict, rebin (K1), defer mask, density
     walk (K2), pressure terms, then the fused force walk with the frame tail
     (K3), or with ``fuse_tail=False`` the raw force walk (K3b) and the tail in
     torch (the same math in another order of rounding).
 
-    The rebin is LOSSLESS: movers that find no free slot, and >1-cell/frame
-    movers in transit, stay in their slot and are DEFERRED — parked out of the
-    force walks for the frame (gravity + integrate + bounce only)."""
+    The default rebin (variant 6; 5 is bit-identical) is LOSSLESS: movers that
+    find no free slot, and >1-cell/frame movers in transit, stay in their slot
+    and are DEFERRED — parked out of the force walks for the frame (gravity +
+    integrate + bounce only).  Variants 2-4 drop what does not fit (``lost``
+    grows by it), defer nothing and take the raw walk and the torch tail."""
     live_before = ps.live.sum(dtype=torch.int32)
-    rebinned, counts = rebin_planes(predict_planes(ps, params), spec)
+    rebinned, counts = rebin_planes(predict_planes(ps, params), spec, variant=variant)
     kept = counts.clamp_max(spec.capacity).sum(dtype=torch.int32)
-    (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(rebinned, spec, params, fuse_tail)
+    (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(
+        rebinned, spec, params, fuse_tail, defer=variant in (5, 6))
     return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2, idsf=idsf, frame=ps.frame,
                       lost=ps.lost + (live_before - kept), n=ps.n)
 
 
 def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
-               fuse_tail: bool = True) -> PlaneState:
-    """Warm-up-honouring full frame: physics once ``frame >= shader_delay``."""
+               fuse_tail: bool = True, variant: int = 6) -> PlaneState:
+    """Warm-up-honouring full frame: physics once ``frame >= shader_delay``.
+    ``variant`` is the rebin's (see :func:`plane_physics`); any other than
+    2-6 raises ValueError."""
+    check_variant(variant)
     if ps.frame >= params.shader_delay:
-        stepped = plane_physics(ps, params, spec, fuse_tail)
+        stepped = plane_physics(ps, params, spec, fuse_tail, variant)
     else:
         stepped = ps
     return dataclasses.replace(stepped, frame=ps.frame + 1)
@@ -248,7 +258,7 @@ def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
 
 def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
                 bounds_static: tuple, patch_margin: int | None = None,
-                fuse_tail: bool = True):
+                fuse_tail: bool = True, variant: int = 6):
     """Fused step + render: the frame, then its image straight from the end
     planes through the plane rasterizer (K4), with no binning.  Returns
     (state, [H, W, 4] image).
@@ -256,8 +266,9 @@ def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
     The patch is the tight one (sprite radius + 1 px of drift slack) with
     centre clamping, so a sprite that drifted further renders displaced
     instead of clipped; ``patch_margin`` asks for a wider patch.  Colours are
-    the energy ramp (sum rule 1), in warm-up too, as in JAX."""
-    new = plane_step(ps, params, spec, fuse_tail)
+    the energy ramp (sum rule 1), in warm-up too, as in JAX.  ``fuse_tail``
+    and ``variant`` as in :func:`plane_step`."""
+    new = plane_step(ps, params, spec, fuse_tail, variant)
     image = splat_from_planes(
         new.px, new.py, new.vx, new.vy, new.live, params.particle_size,
         params.max_energy, bounds_static=bounds_static, grid_spec=spec,

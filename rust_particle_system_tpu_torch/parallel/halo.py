@@ -86,10 +86,17 @@ def rebin_halo(chans, fills, mesh: BandMesh):
     return lo2, lo1, _or_fills(hi, chans, fills)
 
 
+def edge_rows(planes, fills, mesh: BandMesh):
+    """``(lo, hi)``, each ``[len(planes), gw, C]``: the band below's top row and
+    the band above's bottom row of every ``[R, gw, C]`` plane, in one
+    exchange; the fill past the mesh's edges."""
+    lo, hi = exchange_halo(_rows(planes, -1), _rows(planes, 0), mesh)
+    return _or_fills(lo, planes, fills), _or_fills(hi, planes, fills)
+
+
 def halo_rows(planes, fills, mesh: BandMesh) -> list:
     """The walks' halo: each ``[R, gw, C]`` plane with the neighbour bands'
     edge rows on each side (``[R + 2, gw, C]``), in one exchange for all the
     planes; the fill past the mesh's edges."""
-    lo, hi = exchange_halo(_rows(planes, -1), _rows(planes, 0), mesh)
-    lo, hi = _or_fills(lo, planes, fills), _or_fills(hi, planes, fills)
+    lo, hi = edge_rows(planes, fills, mesh)
     return [torch.cat([lo[i:i + 1], p, hi[i:i + 1]]) for i, p in enumerate(planes)]

@@ -1,25 +1,30 @@
 """The band-sharded plane-resident step and rendered frame.
 
 Counterpart of ``rust_particle_system_tpu/parallel/plane_sharded.py`` (rebin
-variant 6).  Each rank owns ``R = gh / n_bands`` rows of cell slots of the
-``[gh, gw, C]`` planes (:func:`.shard.shard_plane_state`) and runs the
+variants 6 and 5).  Each rank owns ``R = gh / n_bands`` rows of cell slots of
+the ``[gh, gw, C]`` planes (:func:`.shard.shard_plane_state`) and runs the
 single-device frame on them with the same kernels: migration between bands
 IS the lossless rebin, which adopts a mover from the neighbour band's edge
-row like any local one (K7: K1 on the band's slab with ghost rows), and the
-walks (K2/K3/K3b, or K6) read the neighbour bands' edge rows as ghost rows.
+row like any local one (variant 6: K7, K1 on the band's slab with ghost
+rows; variant 5: K9's pass Y with ghost rows, the adoption returned to the
+owner band, then pass X, band-local), and the walks (K2/K3/K3b, or K6) read
+the neighbour bands' edge rows as ghost rows.
 
 Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
 ``all_reduce``):
 
 1. gravity + predict                                   (elementwise)
 2. rebin ghost rows, K7                                 one exchange (two at R=1)
+   or variant 5: ghost rows, K9 pass Y                  one exchange
+                 adoption return, merge, K9 pass X      one exchange
 3. defer mask in global rows
 4. the walk planes' ghost rows, density walk            one exchange
 5. the pressure terms' ghost rows, force walk + tail    one exchange
 6. diagnostics                                          one int32 all_reduce
 
 On one card the 4-band step equals :func:`~..ops.cuda.resident.plane_step` on
-the same grid bit for bit: K7 is bit-equal to K1's rows, the walks stage each
+the same grid bit for bit: K7 is bit-equal to K1's rows (and the variant-5
+passes to K1's output), the walks stage each
 cell's live neighbours in an order that depends only on the cells, and the
 elementwise glue runs the same operations.
 """
@@ -31,27 +36,57 @@ import functools
 
 import torch
 
-from ..ops.cuda.rebin import SENTINEL, rebin_planes_band, require_variant_6
+from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band,
+                               retention_merge)
 from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
 from ..render.splat import splat_resolve
 from ..render.splat_planes import MARGIN, splat_from_planes
-from .halo import halo_rows, rebin_halo
+from .halo import edge_rows, exchange_halo, halo_rows, rebin_halo
 from .mesh import BandMesh
 
 FILLS = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)  # predx, predy, vx, vy, idsf
 DIAGS = ("live_before", "live_after", "deferred")
 
 
+def _rebin_v5_band(chans, spec, row0: int, mesh: BandMesh) -> list:
+    """The lossless two-pass rebin on this rank's slab (JAX
+    plane_sharded.py:133-202): K9's pass Y with the neighbour bands' edge rows
+    as ghost rows, the adoption of their slots returned to them, the retention
+    merge with the adoption of ours, then K9's pass X (band-local: its lanes
+    never leave a row) and its merge."""
+    R, gw, C = chans[0].shape
+    flats = [c.reshape(R * gw, C) for c in chans]
+    lo, hi = edge_rows(chans, FILLS, mesh)
+    mid, _, adopted = hole_fill_pass(flats, spec, FILLS, gw, True, True,
+                                     list(zip(lo, hi)), row0)
+    # Group 0 of row 0 adopted the band below's top row; group 1 of row R-1
+    # the band above's bottom row.  Each goes back to its owner.
+    took_lo, took_hi = exchange_halo(adopted[(R - 1) * gw:, C:].to(torch.uint8),
+                                     adopted[:gw, :C].to(torch.uint8), mesh)
+    extra = torch.zeros((R * gw, C), dtype=torch.bool, device=mid[0].device)
+    if took_lo is not None:
+        extra[:gw] |= took_lo.bool()
+    if took_hi is not None:
+        extra[(R - 1) * gw:] |= took_hi.bool()
+    mid = retention_merge(flats, mid, adopted, spec, gw, True, row0, extra)
+    out, _, adopted = hole_fill_pass(mid, spec, FILLS, 1, False, True, None, row0)
+    out = retention_merge(mid, out, adopted, spec, 1, False, row0)
+    return [o.reshape(R, gw, C) for o in out]
+
+
 def _local_plane_physics(ps: PlaneState, params, spec, mesh: BandMesh,
-                         fuse_tail: bool):
+                         fuse_tail: bool, rebin_variant: int):
     """One physics frame on this rank's ``[R, gw, C]`` slab.  Returns the new
     slab state and the diagnostics' per-band int32 counts."""
     R = ps.px.shape[0]
     row0 = mesh.rank * R
     live_before = ps.live.sum(dtype=torch.int32)
     chans = predict_planes(ps, params)
-    rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
-                                    *rebin_halo(chans, FILLS, mesh))
+    if rebin_variant == 5:
+        rebinned = _rebin_v5_band(chans, spec, row0, mesh)
+    else:
+        rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
+                                        *rebin_halo(chans, FILLS, mesh))
     planes, fpx = walk_and_integrate(rebinned, spec, params, fuse_tail, row0,
                                      functools.partial(halo_rows, mesh=mesh))
     live = planes[0] < 0.5 * SENTINEL
@@ -86,16 +121,20 @@ def make_plane_sharded_step(spec, mesh: BandMesh, rebin_variant: int = 6,
 
     ``fuse_tail`` as in ``plane_step``: the fused walk (K3, or K6), or the raw
     walk (K3b, or K6) and the tail in torch, the order of JAX's sharded step.
-    Only rebin variant 6 is ported; variant 5 runs K9, still to port.  The
+    ``rebin_variant``: 6 (K7) or 5 (K9's two passes, with the adoption
+    returned across band boundaries), which give the same planes bit for bit;
+    any other raises ValueError (JAX runs 5 for any other than 6).  The
     warm-up gate reads the host-side frame counter, as ``plane_step`` does."""
-    require_variant_6(rebin_variant)
+    if rebin_variant not in (5, 6):
+        raise ValueError(f"the sharded step runs rebin variant 5 or 6, not {rebin_variant}")
     if spec.gh % mesh.size:
         raise ValueError(f"gh={spec.gh} must divide by {mesh.size} bands; build the "
                          f"grid with parallel.shard.make_shard_spec")
 
     def step(ps: PlaneState, params):
         if ps.frame >= params.shader_delay:
-            new, counts = _local_plane_physics(ps, params, spec, mesh, fuse_tail)
+            new, counts = _local_plane_physics(ps, params, spec, mesh, fuse_tail,
+                                               rebin_variant)
         else:
             new, live = ps, ps.live.sum(dtype=torch.int32)
             counts = torch.stack([live, live, torch.zeros_like(live)])

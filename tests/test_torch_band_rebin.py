@@ -1,6 +1,8 @@
 """Port vs JAX: the band rebin K7 (its plain version) against the JAX
-``_rebin_v6_band`` in interpret mode, and the walks on a band's slab with
-ghost rows against the port's walks on the whole plane.
+``_rebin_v6_band`` in interpret mode, K9's band mode (the variant-5 passes
+with ghost rows, a global row offset and adoption from the neighbour bands)
+against the JAX ``_hole_fill_pass`` and ``_retention_merge``, and the walks
+on a band's slab with ghost rows against the port's walks on the whole plane.
 
 Values only move in a rebin, so K7 is held bit for bit: to JAX per band, and
 to the port's K1 on the whole plane once the bands are put together.  Edge
@@ -22,11 +24,12 @@ import torch
 from test_rebin import _demo_planes
 
 from rust_particle_system_tpu.ops.grid import GridSpec as JGridSpec
-from rust_particle_system_tpu.ops.pallas.rebin import _rebin_v6_band
+from rust_particle_system_tpu.ops.pallas.rebin import (_hole_fill_pass, _rebin_v6_band,
+                                                       _retention_merge)
 from rust_particle_system_tpu_torch.core.params import make_params
 from rust_particle_system_tpu_torch.ops.cuda import sph
 from rust_particle_system_tpu_torch.ops.cuda.rebin import (
-    SENTINEL, rebin_planes_band, rebin_planes_plain)
+    SENTINEL, hole_fill_pass, rebin_planes_band, rebin_planes_plain, retention_merge)
 from rust_particle_system_tpu_torch.ops.cuda.resident import walk_positions
 from rust_particle_system_tpu_torch.ops.grid import GridSpec
 from rust_particle_system_tpu_torch.parallel import BandMesh, make_plane_sharded_step
@@ -156,9 +159,78 @@ def test_band_rebin_rejects_bad_slabs():
 
 
 def test_sharded_rebin_variant_5_names_k9():
+    """The sharded step runs rebin variants 5 (K9) and 6 (K7); any other raises."""
     mesh = BandMesh(group=None, size=2, rank=0, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="K9"):
-        make_plane_sharded_step(GridSpec(**GEOM), mesh, rebin_variant=5)
+    with pytest.raises(ValueError, match="variant 5 or 6"):
+        make_plane_sharded_step(GridSpec(**GEOM), mesh, rebin_variant=4)
+
+
+# ---------------- K9 in band mode (the sharded step's variant 5) ----------------
+
+BAND_R = 2
+BAND_NC = BAND_R * GEOM["gw"]
+BAND_PAD = 128 - BAND_NC  # JAX pads the flat planes to 128 cells
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_band_passes(lossless: bool):
+    """JAX pass Y on a BAND_R-row band (ghost rows, row0 traced, pad cells
+    masked by nc_valid) and, lossless, its retention merge with adoption from
+    elsewhere, then pass X and its adoption mask; jitted once per mode."""
+    spec, gw = JGridSpec(**GEOM), GEOM["gw"]
+
+    def run(flats, ghosts, row0, extra):
+        mid, cnt, acc = _hole_fill_pass(flats, spec, FILLS, gw, True, True, lossless,
+                                        ghosts=ghosts, row_offset=row0, nc_valid=BAND_NC)
+        if not lossless:
+            return mid, cnt
+        merged = _retention_merge(flats, mid, acc, spec, gw, True, row_offset=row0,
+                                  extra_adopted=extra)
+        out, cnt2, acc2 = _hole_fill_pass(merged, spec, FILLS, 1, False, True, True,
+                                          row_offset=row0, nc_valid=BAND_NC)
+        return mid, cnt, acc, merged, out, cnt2, acc2
+
+    return jax.jit(run)
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+@pytest.mark.parametrize("row0", [0, 2, 6])
+def test_band_hole_fill_pass_matches_jax(rng, lossless, row0):
+    """K9's pass Y (plain) on rows [row0, row0 + 2) of 8, its ghost rows the
+    true neighbour rows (the fills past the grid, as the port's mesh gives
+    them), then, lossless, the retention merge with adoption made elsewhere
+    and the band-local pass X: planes, counts and adoption masks bit-equal to
+    JAX on the band padded to 128 cells."""
+    gw, C = GEOM["gw"], GEOM["capacity"]
+    planes = _planes(rng, 1.8)
+    ghosts = _ghosts(planes, row0, BAND_R, lambda c: np.full((gw, C), FILLS[c], np.float32))
+    pairs = list(zip(ghosts[1], ghosts[2]))  # (row0 - 1, row0 + R) of each channel
+    flats = [p[row0:row0 + BAND_R].reshape(BAND_NC, C) for p in planes]
+    extra = np.random.default_rng(3).random((BAND_NC, C)) < 0.5
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    spec = GridSpec(**GEOM)
+    want = _jax_band_passes(lossless)(
+        [jnp.concatenate([jnp.asarray(f), jnp.full((BAND_PAD, C), fl, jnp.float32)])
+         for f, fl in zip(flats, FILLS)],
+        [(jnp.asarray(lo), jnp.asarray(hi)) for lo, hi in pairs],
+        jnp.asarray(row0, jnp.int32),
+        jnp.concatenate([jnp.asarray(extra, jnp.float32), jnp.zeros((BAND_PAD, C))]))
+    want = [np.asarray(w)[:BAND_NC] for w in jax.tree_util.tree_leaves(want)]
+    got_mid, got_cnt, got_acc = hole_fill_pass(
+        [t(f) for f in flats], spec, FILLS, gw, True, lossless,
+        [(t(lo), t(hi)) for lo, hi in pairs], row0)
+    got = [*got_mid, got_cnt]
+    if lossless:
+        merged = retention_merge([t(f) for f in flats], got_mid, got_acc, spec, gw, True,
+                                 row0, t(extra))
+        out, cnt, acc = hole_fill_pass(merged, spec, FILLS, 1, False, True, None, row0)
+        got += [got_acc, *merged, *out, cnt, acc]
+        want = [w > 0.5 if w.shape[-1] == 2 * C else w for w in want]
+    else:
+        assert got_acc is None
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"output {i}")
 
 
 # ---------------- walks on a band's slab with ghost rows ----------------

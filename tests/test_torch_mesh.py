@@ -36,7 +36,7 @@ WORLD_S = 90.0
 
 
 def _drive(mesh, planes, frame, n, spec, params, frames, fuse_tail=True, render=None,
-           expect=None):
+           expect=None, rebin_variant=6):
     """One rank: shard the whole state, run ``frames`` sharded steps (then one
     sharded frame with its image if ``render`` = (RenderSpec, bounds)),
     checking the diagnostics after each; gather.  Returns the diagnostics and,
@@ -45,14 +45,14 @@ def _drive(mesh, planes, frame, n, spec, params, frames, fuse_tail=True, render=
     ps = R.PlaneState(*(torch.from_numpy(p) for p in planes), frame=frame,
                       lost=torch.zeros((), dtype=torch.int32), n=n)
     slab = shard_plane_state(ps, mesh)
-    step = make_plane_sharded_step(spec, mesh, fuse_tail=fuse_tail)
+    step = make_plane_sharded_step(spec, mesh, rebin_variant, fuse_tail)
     diags, image = [], None
     for _ in range(frames):
         slab, d = step(slab, params)
         diags.append(check_plane_diags(d, expect))
     if render is not None:
-        slab, image, d = make_plane_sharded_frame(spec, mesh, *render,
-                                                  fuse_tail=fuse_tail)(slab, params)
+        slab, image, d = make_plane_sharded_frame(spec, mesh, *render, rebin_variant,
+                                                  fuse_tail)(slab, params)
         diags.append(check_plane_diags(d, expect))
     whole = gather_plane_state(slab, mesh)
     if mesh.rank:
@@ -96,7 +96,7 @@ def _jax_setup(rng, n=320, vmax=30.0, pack2=False):
     return spec, jmake_params(bounds=BOUNDS, gravity=120.0, shader_delay=0), ps
 
 
-def _jax_sharded(spec, params, ps, n_bands, frames):
+def _jax_sharded(spec, params, ps, n_bands, frames, rebin_variant=6):
     """JAX make_plane_sharded_step on the virtual CPU mesh, as particles."""
     import jax
 
@@ -107,7 +107,7 @@ def _jax_sharded(spec, params, ps, n_bands, frames):
         shard_plane_state as jshard)
 
     mesh = make_band_mesh(n_bands)
-    step = jstep(spec, mesh)
+    step = jstep(spec, mesh, rebin_variant=rebin_variant)
     sharded = jshard(ps, mesh)
     for _ in range(frames):
         sharded, diags = step(sharded, params)
@@ -156,6 +156,28 @@ def test_sharded_step_matches_jax_sharded(rng, n_bands, fuse_tail, pack2):
     np.testing.assert_allclose(gv, wv, rtol=0, atol=2e-3)
 
 
+@pytest.mark.parametrize("n_bands,fuse_tail", [(4, True), (2, False)])
+def test_sharded_step_v5_matches_jax_sharded(rng, n_bands, fuse_tail):
+    """Rebin variant 5: K9's pass Y with ghost rows, the adoption returned
+    across band boundaries, pass X; against JAX's sharded step at variant 5
+    (chip_smoke.py holds it to the single-device step bit for bit on the
+    card)."""
+    jspec, jparams, jps = _jax_setup(rng)
+    spec = GridSpec(**_spec())
+    params = make_params(bounds=BOUNDS, gravity=120.0, shader_delay=0)
+    n = int(jps.n)
+    out = _world(n_bands, _initial(jps), int(jps.frame), n, spec, params, 4, fuse_tail,
+                 None, n, 5)
+    want = _jax_sharded(jspec, jparams, jps, n_bands, 4, rebin_variant=5)
+    ps, got = _port_particles(out, n, params)
+    assert int(ps.live.sum()) == n
+    gp, gv, gi = _by_id(got.pos, got.vel, got.ids)
+    wp, wv, wi = _by_id(want.pos, want.vel, want.ids)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gp, wp, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=2e-3)
+
+
 def test_sharded_step_conserves_across_band_transit(rng):
     """Fast downward flow (gravity 400, |v| up to 60): particles cross band
     boundaries every few frames; the live count stays exact on every band."""
@@ -186,7 +208,7 @@ def test_sharded_step_band_crossing_changes_owner():
     assert len(rows) == 1 and rows[0] >= 4, f"expected band-1 rows, got {rows}"
 
 
-def test_sharded_step_crowded_boundary_defers_then_delivers():
+def test_sharded_step_crowded_boundary_defers_then_delivers(rebin_variant=6):
     """tests/test_plane_sharded.py:129-190 (v6): a full edge cell of band 0
     whose 16 occupants slide right one cell per frame, and a mover in band 1's
     bottom row falling into it.  Frame 1: the mover finds no hole and is
@@ -204,13 +226,20 @@ def test_sharded_step_crowded_boundary_defers_then_delivers():
             planes[c][1, 5, s] = v
     for c, v in enumerate((-5.0, -14.0, 0.0, -9.0 / dt, 99.0)):
         planes[c][2, 5, 0] = v
-    out = _world(2, planes, 10, capacity + 1, spec, params, 2, True, None, capacity + 1)
+    out = _world(2, planes, 10, capacity + 1, spec, params, 2, True, None, capacity + 1,
+                 rebin_variant)
     deferred = [d["deferred"] for d in out["diags"]]
     assert deferred[0] >= 1, f"mover was not deferred at the full cell: {deferred}"
     px, idsf = out["planes"][0], out["planes"][4]
     rows = np.argwhere((px < 5e5) & (idsf == 99.0))
     assert len(rows) == 1 and rows[0][0] < 2, (
         f"mover not delivered into band 0: slots {rows}, deferred {deferred}")
+
+
+def test_sharded_step_crowded_boundary_v5():
+    """The same at rebin variant 5: the mover's adoption is refused in band 0's
+    pass Y, so no acceptance returns and band 1 retains it; then delivered."""
+    test_sharded_step_crowded_boundary_defers_then_delivers(rebin_variant=5)
 
 
 def test_sharded_frame_image_matches_single_device(rng):

@@ -132,7 +132,8 @@ def test_rebin_no_row_edge_wrap():
 def test_rebin_rejects_other_variants_and_live_fills():
     spec = GridSpec(x_min=0.0, y_min=0.0, cell_size=10.0, gw=3, gh=2, capacity=2)
     planes = [torch.full((2, 3, 2), SENTINEL) for _ in range(2)]
-    with pytest.raises(NotImplementedError):
-        rebin_planes(planes, spec, variant=5)
+    for variant in (1, 7):  # JAX's rebin_planes takes 2..6
+        with pytest.raises(ValueError, match="variant"):
+            rebin_planes(planes, spec, variant=variant)
     with pytest.raises(ValueError):
         rebin_planes(planes, spec, fills=(0.0, 0.0))
