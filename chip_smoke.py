@@ -28,9 +28,15 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      three walks on a 1M uniform pair-packed state (C=64, the JAX package's
      headline configuration, bench.py:387-389) with forced deferrals, at C=32
      and on an odd-width grid, and against K2/K3 on the same C=64 planes; K8
-     at n = 16,384 and 1000, coincident particles included; then the whole
-     step, and the N-body, flow and attractor steps, against the plain path
-     (CPU) on small inputs;
+     at n = 16,384 and 1000, coincident particles included; K11 (the
+     cell-binned splat) at 1080p, capacity 64, rtol/atol 1e-4 with equal
+     overflow, on a 1M uniform state, the 50k scene's state under the camera
+     (5, -3, 1.5), a crammed cluster that overflows and particles on the
+     edges, off screen and on 8-px cell boundaries (and against the scatter
+     splat where nothing overflowed); then the whole step, and the N-body,
+     flow and attractor steps, against the plain path (CPU) on small inputs;
+     the spec on the card: at n = 4096, grid_step and one live frame of
+     plane_step (K1, K2, K3) against the all-pairs reference_step;
   3  the user entry points, each path with the launch counts set to 0 just
      before it and read just after:
      scene  Simulation(SPHFluid.create(n=50_000)), gravity=400, 300 frames;
@@ -55,6 +61,15 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
             v2's planes bit-equal to v3's; K9 (v4) or K12 (v2, v3) alone;
      nbody, flow, attractor  runtime.cli.main(--model ... --render
             build/chip_smoke_<model>.png --stats); nbody launches K8;
+     grid   Simulation(SPHFluid.create(n=50_000, backend="grid")), gravity
+            400, GRID_FRAMES frames: no kernel in the step; finite, in bounds,
+            stats() passes validate_grid; its 1080p image (scatter splat)
+            against splat_cells of its state (K11), overflow printed;
+     cli_grid  runtime.cli.main(--backend grid ... --render
+            build/chip_smoke_grid.png --stats), the PNG equal to grid's image;
+     oracle  SPHFluid.create(n=4096, backend="oracle"), 10 frames, no kernel;
+     flow_k11  the flow model at 1M, 10 frames, then splat_cells at 1080p
+            (K11 once) against model.render;
      mesh_gloo  the band-sharded step (parallel/) in a world of 4 spawned
             ranks on the one card over gloo (halos staged through the host):
             1M C=128 on 4 x 31 rows, 6 frames, 2 with fuse_tail=False (K3b),
@@ -71,7 +86,10 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      step_and_render); 1M uniform pair-packed C=64 against classic C=64; the
      N-body at 16,384, the flow field at 1M, the attractor at 65,536; the
      variant-5 rebin at 1M stage by stage (events, and device time by the
-     profiler), K12, and plane_step at 1M for variants 6, 5 and 4 in turns.
+     profiler), K12, and plane_step at 1M for variants 6, 5 and 4 in turns;
+     K11 (splat_cells) beside the scatter splat at 1080p on the 1M flow
+     state, the 50k scene and the 50k grid state; grid_step at 50k and
+     reference_step at 4096 per frame.
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -94,6 +112,9 @@ HERE = Path(__file__).resolve().parent
 BOUNDS = (-960.0, 960.0, -540.0, 540.0)
 N_1M = 1_000_000
 N_NBODY = 16_384  # BASELINE.json config 3
+N_ORACLE = 4096  # the all-pairs oracle's [n, n] temporaries stay ~100 MB
+GRID_FRAMES = 125  # 5 warm-up + 120 live frames of the grid backend at 50k
+CAMERA = (5.0, -3.0, 1.5)  # tests/test_render.py:170
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -133,6 +154,27 @@ def window_pairs(walk_px) -> int:
     p = F.pad(n, (1, 1, 1, 1))
     w = sum(p[dy: dy + gh, dx: dx + gw] for dy in range(3) for dx in range(3))
     return int((n * w).sum())
+
+
+def sprite_pixels(cx, cy, radius: float, height: int, width: int) -> int:
+    """(sprite, pixel) pairs a splat must evaluate: the pixel centres of the
+    height x width image within ``radius`` of each sprite centre ``cx, cy``
+    ([m] pixels; alpha is 0 at and beyond the radius)."""
+    import torch
+
+    k = int(radius) + 2
+    offs = torch.arange(-k, k + 1, dtype=torch.float32, device=cx.device)
+    ix = torch.floor(cx)[:, None] + offs  # [m, 2k + 1] candidate columns
+    dx = ix + 0.5 - cx[:, None]
+    in_x = (ix >= 0) & (ix < width)
+    pairs = 0
+    for o in range(-k, k + 1):
+        iy = torch.floor(cy) + o
+        dy = iy + 0.5 - cy
+        in_y = (iy >= 0) & (iy < height)
+        pairs += int((in_x & in_y[:, None] & (dx * dx + (dy * dy)[:, None]
+                                              < radius * radius)).sum())
+    return pairs
 
 
 def gpu_line() -> str:
@@ -254,6 +296,26 @@ def uniform_plane_state(torch, spec, n: int, seed: int):
     return plane_state_from_particles(make_state(lo + u * (hi - lo)), spec)
 
 
+def render_occupancy(torch, pos, bounds, rs, capacity: int = 64, camera=None) -> tuple:
+    """(most particles in one 8 x 8-pixel render cell, particles beyond
+    ``capacity``) of K11's binning, counted without a kernel."""
+    from rust_particle_system_tpu_torch.render import world_to_pixel
+    from rust_particle_system_tpu_torch.render.splat_cells import render_grid
+
+    px, py, _, _ = world_to_pixel(pos, bounds, rs, camera)
+    keys = render_grid(rs, capacity).cell_keys(torch.stack([px, py], -1))
+    counts = torch.bincount(keys.long())
+    return int(counts.max()), int((counts - capacity).clamp_min(0).sum())
+
+
+def spec_close(got, want) -> bool:
+    """The JAX tests' one-frame bars against the oracle (tests/test_grid.py:
+    103-105, tests/test_pallas_sph.py:38-40): pos rtol/atol 1e-4, vel rtol
+    1e-4 / atol 1e-2, colour 1e-3."""
+    return (close(got.pos, want.pos, 1e-4, 1e-4) and close(got.vel, want.vel, 1e-4, 1e-2)
+            and close(got.color, want.color, 1e-3, 1e-3))
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its row key (each counts its
     launches in ``.launches``)."""
@@ -264,13 +326,14 @@ def kernel_counters() -> dict:
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
         density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
         force_planes_integrated)
+    from rust_particle_system_tpu_torch.render.splat_cells import raster_cells
     from rust_particle_system_tpu_torch.render.splat_planes import raster_planes
 
     return {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
             "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
             "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
             "K7": rebin_planes_band, "K8": nbody_accel, "K9": hole_fill_pass,
-            "K12": rebin_compact}
+            "K11": raster_cells, "K12": rebin_compact}
 
 
 def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
@@ -451,8 +514,12 @@ def main() -> int:
         force_planes_integrated_plain, force_planes_plain, force_scalars,
         pressure_terms)
     from rust_particle_system_tpu_torch.ops.grid import GridSpec, build_grid
+    from rust_particle_system_tpu_torch.ops.grid_step import grid_physics, grid_step
+    from rust_particle_system_tpu_torch.ops.reference_step import reference_step
     from rust_particle_system_tpu_torch.parallel import make_shard_spec
-    from rust_particle_system_tpu_torch.render import RenderSpec, to_srgb_u8
+    from rust_particle_system_tpu_torch.render import RenderSpec, splat, to_srgb_u8
+    from rust_particle_system_tpu_torch.render.splat_cells import (
+        raster_cells, raster_cells_inputs, raster_cells_plain, splat_cells, splat_cells_plain)
     from rust_particle_system_tpu_torch.render.splat_planes import (
         FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
     from rust_particle_system_tpu_torch.runtime import cli
@@ -507,7 +574,7 @@ def main() -> int:
     lo = torch.tensor([BOUNDS[0], BOUNDS[2]], device="cuda")
     hi = torch.tensor([BOUNDS[1], BOUNDS[3]], device="cuda")
     pos = lo + u * (hi - lo)
-    grid = build_grid(spec, pos)
+    grid = build_grid(spec, pos, with_table=False)
     ids = torch.arange(N_1M, device="cuda", dtype=torch.float32)
     packed = torch.cat([pos, torch.zeros_like(pos), ids[:, None]], -1)[grid.perm.long()]
     packed = packed.contiguous()
@@ -849,13 +916,19 @@ def main() -> int:
         return ins, max_abs(ka, pa)
 
     def k4_work(ins) -> tuple:
-        """(bytes, operations) of one K4 call: its planes in, its accumulators
-        out, and every live slot over its (sy + 2m) x (sx + 2m) patch."""
-        ppx, ppy, cols, (H, W, sx, sy, m), _ = ins
-        nch = len(cols) + 1
-        live = int((ppx < 0.5 * FAR).sum())
+        """(bytes, operations) of one K4 call (drift clamped): its planes in,
+        its accumulators out, and each live sprite, its centre clamped into
+        its cell's patch, over the image's pixel centres within its radius."""
+        ppx, ppy, cols, (H, W, sx, sy, m), scal = ins
+        nch, r = len(cols) + 1, scal[0]
+        gh, gw, _ = ppx.shape
+        x0 = (torch.arange(gw, device=ppx.device) * sx - m).float()[None, :, None]
+        y0 = (H - (torch.arange(gh, device=ppx.device) + 1) * sy - m).float()[:, None, None]
+        live = ppx < 0.5 * FAR
+        cx = (x0 + (ppx - x0).clamp(r, sx + 2 * m - r))[live]
+        cy = (y0 + (ppy - y0).clamp(r, sy + 2 * m - r))[live]
         return (nbytes(ppx, ppy, *cols) + 4 * nch * H * W,
-                live * (sy + 2 * m) * (sx + 2 * m) * ops_raster(nch))
+                sprite_pixels(cx, cy, r, H, W) * ops_raster(nch))
 
     rs_main = RenderSpec()
     img_st = R.plane_step(ps, params, spec)
@@ -1022,6 +1095,56 @@ def main() -> int:
     print(f"phase 2: K8 within the bar at n={N_NBODY} and 1000 (coincident particles "
           f"finite), max abs err {k8_err:.2e}")
 
+    # K11, the cell-binned splat, against its plain version at 1080p and
+    # capacity 64, rtol/atol 1e-4 (K4's bar), overflow equal, on (a) a 1M
+    # uniform state, (b) the 50k scene's state under the camera (5, -3, 1.5),
+    # with the JAX camera test's particle size 2 (3 px sprites), (c) a crammed
+    # cluster whose cells exceed 64 and (d) particles on the image's edges,
+    # off screen and on 8-px cell boundaries.  Where nothing overflowed, also
+    # against the scatter splat at 1e-4 (tests/test_pallas_splat.py:38).
+    gk = torch.Generator(device="cuda").manual_seed(13)
+    sim50 = Simulation(SPHFluid.create(n=50_000))
+    sim50.update_params(gravity=400.0)
+    sim50.run(65)
+    st50 = sim50.particle_state()
+    xb = torch.arange(0.0, 1921.0, 8.0, device="cuda") - 960.0  # px on cell edges
+    yb = 540.0 - torch.arange(0.0, 1081.0, 24.0, device="cuda")  # py on cell edges
+    edge_pos = torch.cat([
+        torch.stack(torch.meshgrid(xb, yb, indexing="ij"), -1).reshape(-1, 2),
+        torch.tensor([[-960.0, -540.0], [960.0, 540.0], [-960.0, 540.0], [960.0, -540.0],
+                      [1e4, 0.0], [-2000.0, -900.0], [0.0, 700.0], [-962.5, 0.0],
+                      [962.5, 10.0]], device="cuda")])
+    k11_cases = {
+        "1M uniform": (lo + torch.rand((N_1M, 2), generator=gk, device="cuda") * (hi - lo),
+                       torch.rand((N_1M, 4), generator=gk, device="cuda"), 3.0, None),
+        "50k scene, camera": (st50.pos, st50.color, 2.0, CAMERA),
+        "crammed": (torch.randn((20_000, 2), generator=gk, device="cuda") * 6.0,
+                    torch.rand((20_000, 4), generator=gk, device="cuda"), 3.0, None),
+        "edges": (edge_pos, torch.rand((edge_pos.shape[0], 4), generator=gk, device="cuda"),
+                  3.0, None)}
+    k11_err, k11_over = 0.0, {}
+    for label, (kp, kc, ksize, kcam) in k11_cases.items():
+        ka, ova = splat_cells(kp, kc, ksize, BOUNDS, rs_main, return_overflow=True,
+                              camera=kcam)
+        pa, ovp = splat_cells_plain(kp, kc, ksize, BOUNDS, rs_main, return_overflow=True,
+                                    camera=kcam)
+        require(tuple(ka.shape) == (1080, 1920, 4) and bool(torch.isfinite(ka).all()),
+                f"K11 ({label}): image shape or non-finite values")
+        require(close(ka, pa, 1e-4, 1e-4) and int(ova) == int(ovp),
+                f"K11 ({label}) differs from its plain version beyond rtol/atol 1e-4 "
+                f"(overflow {int(ova)} vs {int(ovp)})")
+        require(float(pa[..., :3].amax()) > 0.0, f"K11 ({label}): nothing drawn")
+        k11_err = max(k11_err, max_abs(ka, pa))
+        k11_over[label] = int(ova)
+        if int(ova) == 0:
+            sa = splat(kp, kc, ksize, BOUNDS, rs_main, camera=kcam)
+            require(close(ka, sa, 1e-4, 1e-4),
+                    f"K11 ({label}) differs from the scatter splat beyond rtol/atol 1e-4")
+    require(k11_over["crammed"] > 0 and k11_over["edges"] == 0 and k11_over["1M uniform"] == 0,
+            f"K11 overflow cases not as built: {k11_over}")
+    print(f"phase 2: K11 within rtol/atol 1e-4 of its plain version at 1080p, capacity 64 "
+          f"({k11_err:.2e}), overflow equal {k11_over}; and of the scatter splat where 0")
+
     # The whole step on a small input, in both layouts: kernels (card) vs
     # plain versions (CPU).
     sb = (-90.0, 90.0, -45.0, 45.0)
@@ -1071,6 +1194,37 @@ def main() -> int:
         print(f"phase 2: {m} x {n}, 3 steps, card vs CPU: pos "
               f"{max_abs(st_c.pos.cpu(), st_h.pos):.2e} vel "
               f"{max_abs(st_c.vel.cpu(), st_h.vel):.2e}")
+
+    # The spec on the card: N_ORACLE uniform particles (320 x 180 domain,
+    # ~5 a cell), random velocities, gravity 80.  grid_step and one live frame
+    # of plane_step (K1, K2, K3; id order) against reference_step.
+    ob = (-160.0, 160.0, -90.0, 90.0)
+    op = make_params(bounds=ob, gravity=80.0, shader_delay=0)
+    go = torch.Generator(device="cuda").manual_seed(14)
+    olo = torch.tensor([ob[0], ob[2]], device="cuda")
+    ohi = torch.tensor([ob[1], ob[3]], device="cuda")
+    so = port.make_state(olo + torch.rand((N_ORACLE, 2), generator=go, device="cuda")
+                         * (ohi - olo),
+                         (torch.rand((N_ORACLE, 2), generator=go, device="cuda") * 2 - 1) * 20.0)
+    ref_o = reference_step(so, op)
+    gspec = GridSpec.from_bounds(ob, 9.0, 64)
+    got_g = grid_step(so, op, gspec)
+    require(int(grid_physics(so, op, gspec)[1]) == 0, "the spec check's grid overflowed")
+    require(spec_close(got_g, ref_o) and got_g.frame == ref_o.frame == 1,
+            "grid_step differs from reference_step on the card beyond the one-frame bars")
+    pspec = GridSpec.from_bounds(ob, 9.0, 128)
+    po = R.plane_step(R.plane_state_from_particles(so, pspec), op, pspec)
+    got_p = po.to_particle_state(op)
+    require(int(po.lost) == 0 and torch.equal(
+        got_p.ids, torch.arange(N_ORACLE, dtype=torch.int32, device="cuda")),
+        "the spec check's plane state lost particles")
+    require(spec_close(got_p, ref_o),
+            "plane_step (K1/K2/K3) differs from reference_step on the card beyond the "
+            "one-frame bars")
+    print(f"phase 2: the spec on the card, n={N_ORACLE}, one live frame against "
+          f"reference_step: grid_step pos {max_abs(got_g.pos, ref_o.pos):.2e} vel "
+          f"{max_abs(got_g.vel, ref_o.vel):.2e}; plane_step pos "
+          f"{max_abs(got_p.pos, ref_o.pos):.2e} vel {max_abs(got_p.vel, ref_o.vel):.2e}")
 
     # ---------------- phase 3: the user entry points ----------------
     kernels = kernel_counters()
@@ -1304,6 +1458,101 @@ def main() -> int:
         print(f"phase 3: cli --model {m} --n {n} --frames {frames} --render {png_m.name} "
               f"--stats ok ({lit} px lit); launches {launches}")
 
+    def no_kernel(launches) -> bool:
+        return all(v == 0 for v in launches.values())
+
+    # grid: the sort-binned backend.  Its step launches no CUDA kernel; its
+    # image is the scatter splat; splat_cells of its state (K11) at capacity
+    # 64 reports its overflow, and at the densest cell's occupancy (nothing
+    # left out) agrees with the image.
+    reset()
+    simg = Simulation(SPHFluid.create(n=50_000, backend="grid"))
+    simg.update_params(gravity=400.0)
+    yg0 = float(simg.state.pos[:, 1].mean())
+    t0 = time.perf_counter()
+    simg.run(5)
+    statsg = []
+    for _ in range((GRID_FRAMES - 5) // 60):
+        simg.run(60)
+        statsg.append(simg.stats())  # finite, in bounds, validate_grid, else raises
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    launches = read("grid_step")
+    require(no_kernel(launches), f"the grid step launched a kernel: {launches}")
+    stg = simg.state
+    yg1 = float(stg.pos[:, 1].mean())
+    require(stg.frame == GRID_FRAMES and yg1 < yg0 - 10.0,
+            f"grid backend: frame {stg.frame}, y {yg0} -> {yg1}")
+    gp, grs = simg.params, simg.model.render_spec
+    imgg = simg.render()
+    require(tuple(imgg.shape) == (1080, 1920, 4) and bool(torch.isfinite(imgg).all()),
+            "grid backend image")
+    _, over64 = splat_cells(stg.pos, stg.color, gp.particle_size, gp.bounds, grs,
+                            return_overflow=True)
+    occ, want64 = render_occupancy(torch, stg.pos, gp.bounds, grs)
+    require(int(over64) == want64, f"K11 overflow {int(over64)} vs counted {want64}")
+    kg, kover = splat_cells(stg.pos, stg.color, gp.particle_size, gp.bounds, grs,
+                            capacity=max(64, occ), return_overflow=True)
+    require(int(kover) == 0 and close(kg, imgg, 1e-4, 1e-4),
+            "splat_cells of the grid state differs from its image beyond rtol/atol 1e-4")
+    launches = read("grid")
+    require(launches["K11"] == 2 and all(v == 0 for k, v in launches.items() if k != "K11"),
+            f"the grid render path did not run K11 alone: {launches}")
+    print(f"phase 3: grid backend 50k (capacity {simg.model.grid.capacity}) x {GRID_FRAMES} "
+          f"frames ok, no kernel in the step; y {yg0:.1f} -> {yg1:.1f}; stats "
+          f"{statsg[-1]}; {grid_s:.2f} s host clock incl. stats; K11 overflow at capacity "
+          f"64: {int(over64)} (densest render cell {occ}); K11 at capacity {max(64, occ)} "
+          f"within 1e-4 of the image ({max_abs(kg, imgg):.2e}); launches {launches} [{card}]")
+
+    # cli_grid: the same run through the CLI, its PNG against grid's image.
+    png_g = HERE / "build" / "chip_smoke_grid.png"
+    reset()
+    rc = cli.main(["--backend", "grid", "--n", "50000", "--frames", str(GRID_FRAMES),
+                   "--set", "gravity=400", "--render", str(png_g), "--stats"])
+    torch.cuda.synchronize()
+    launches = read("cli_grid")
+    require(rc == 0 and no_kernel(launches), f"cli --backend grid: rc {rc}, {launches}")
+    got = read_png(png_g)
+    diff = int(np.abs(got.astype(np.int64)
+                      - to_srgb_u8(imgg).cpu().numpy().astype(np.int64)).max())
+    require(got.shape == (1080, 1920, 4) and diff <= 1,
+            f"cli --backend grid: PNG {got.shape}, {diff} LSB from the grid image")
+    print(f"phase 3: cli --backend grid --render {png_g.name} --stats ok, max {diff} LSB "
+          f"from grid's frame {GRID_FRAMES}; launches {launches}")
+
+    # oracle: the all-pairs backend at N_ORACLE, 10 frames.
+    reset()
+    simo = Simulation(SPHFluid.create(n=N_ORACLE, backend="oracle"))
+    simo.update_params(gravity=400.0)
+    simo.run(10)
+    statso = simo.stats()
+    torch.cuda.synchronize()
+    launches = read("oracle")
+    require(no_kernel(launches) and simo.state.frame == 10 and simo.model.grid is None,
+            f"oracle backend: {launches}")
+    print(f"phase 3: oracle backend {N_ORACLE} x 10 frames ok ({statso}); launches {launches}")
+
+    # flow_k11: the flow model at 1M, 10 frames, then one splat_cells (K11)
+    # at the densest render cell's occupancy against model.render.
+    reset()
+    fm = MODEL_FAMILIES["flow"].create()
+    simf = Simulation(fm, n=N_1M, seed=2)
+    simf.run(10)
+    fst, fp = simf.state, simf.params
+    occf, overf64 = render_occupancy(torch, fst.pos, fp.bounds, fm.render_spec)
+    kf, koverf = splat_cells(fst.pos, fst.color, fp.particle_size, fp.bounds, fm.render_spec,
+                             capacity=max(64, occf), return_overflow=True)
+    torch.cuda.synchronize()
+    launches = read("flow_k11")
+    require(launches["K11"] == 1 and all(v == 0 for k, v in launches.items() if k != "K11"),
+            f"flow_k11: unexpected launches {launches}")
+    wantf = fm.render(fst, fp)
+    require(int(koverf) == 0 and close(kf, wantf, 1e-4, 1e-4),
+            "splat_cells of the 1M flow state differs from model.render beyond 1e-4")
+    print(f"phase 3: flow 1M x 10 frames, splat_cells at capacity {max(64, occf)} within "
+          f"1e-4 of model.render ({max_abs(kf, wantf):.2e}); overflow at capacity 64 would "
+          f"be {overf64}; launches {launches}")
+
     mesh_ms = mesh_worlds(paths, card)
 
     for k in ("K1", "K2", "K3", "K4", "K5"):
@@ -1371,6 +1620,50 @@ def main() -> int:
         require(bool(torch.isfinite(simm.state.pos).all()), f"{m} frames not finite")
     print(f"phase 4: ms/frame {json.dumps(ms_models)} (nbody n={N_NBODY}, flow n={N_1M}, "
           f"attractor n=65536) [{card}]")
+
+    # K11 at 1080p, capacity 64: the kernel alone on the 1M flow state's
+    # binning (its row), and splat_cells end to end beside the scatter splat
+    # on the 1M flow state, the 50k scene (plane-resident) and the 50k grid
+    # state; then the grid and oracle backends' frames.
+    k11_args = raster_cells_inputs(fst.pos, fst.color, fp.particle_size, fp.bounds,
+                                   fm.render_spec)
+    ka, pa = raster_cells(*k11_args), raster_cells_plain(*k11_args)
+    require(all(close(x, y, 1e-4, 1e-4) for x, y in zip(ka, pa)),
+            "K11 accumulators differ from their plain version beyond rtol/atol 1e-4")
+    k11_err = max([k11_err] + [max_abs(x, y) for x, y in zip(ka, pa)])
+    kpx, kpy, _, kgrid, krs, kH, kW, kscal = k11_args
+    k11_live = N_1M - int(kgrid.overflow)
+    # The drawn slots (the first `capacity` of each cell in sort order) over
+    # the pixel centres within the radius (edge start + edge width).
+    kperm, kdrawn = kgrid.perm.long(), kgrid.slot < krs.capacity
+    k11_pairs = sprite_pixels(kpx[kperm][kdrawn], kpy[kperm][kdrawn], kscal[0] + kscal[1],
+                              kH, kW)
+    record("K11", "K11 cell-binned splat", "rust_particle_system_tpu_torch/csrc/splat_cells.cu",
+           "rust_particle_system_tpu/render/splat_pallas.py:45", k11_err,
+           cuda_ms(lambda: raster_cells(*k11_args), 20),
+           cuda_ms(lambda: raster_cells_plain(*k11_args), 3),
+           nbytes(kpx, kpy) + 12 * N_1M + nbytes(kgrid.perm, kgrid.starts) + 4 * 4 * kH * kW,
+           k11_pairs * ops_raster(4))
+    splat_ms = {}
+    for label, (sst, sprm, srs) in (("flow 1M", (fst, fp, fm.render_spec)),
+                                    ("scene 50k", (sim.particle_state(), sim.params,
+                                                   model.render_spec)),
+                                    ("grid 50k", (stg, gp, grs))):
+        args_s = (sst.pos, sst.color, sprm.particle_size, sprm.bounds, srs)
+        splat_ms[label] = {"splat_cells (K11)": cuda_ms(lambda a=args_s: splat_cells(*a), 20),
+                           "splat_cells, device (profiler)":
+                               device_ms(lambda a=args_s: splat_cells(*a), 10),
+                           "splat (scatter)": cuda_ms(lambda a=args_s: splat(*a), 5)}
+    step_ms_backends = {"grid 50k": cuda_ms(lambda: simg.run(1), 20),
+                        "grid 50k, device (profiler)": device_ms(lambda: simg.run(1), 5),
+                        f"oracle {N_ORACLE}": cuda_ms(lambda: simo.run(1), 20),
+                        f"oracle {N_ORACLE}, device (profiler)": device_ms(lambda: simo.run(1), 5)}
+    require(bool(torch.isfinite(simg.state.pos).all() and torch.isfinite(simo.state.pos).all()),
+            "grid or oracle frames not finite")
+    print(f"phase 4: 1080p image ms {json.dumps(splat_ms)}; K11 kernel alone on the 1M flow "
+          f"state {rows['K11']['ms']:.3f} ms ({k11_live} slots drawn, {k11_pairs} "
+          f"(slot, pixel) pairs within the radius); ms/frame "
+          f"{json.dumps(step_ms_backends)} [{card}]")
     # The variant-5 rebin at 1M stage by stage: CUDA events over a host loop
     # (host-bound where the stage's launches outrun its device work), and
     # the device time of its kernels by the profiler; K1 and variant 4 beside.
@@ -1403,8 +1696,9 @@ def main() -> int:
         require(int(held[0].live.sum()) + int(held[0].lost) == N_1M, f"variant {v}: live + lost")
     print(f"phase 4: 1M uniform C=128 plane_step ms/frame by rebin variant (in turns) "
           f"{json.dumps(step_ms)} [{card}]")
-    order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K6d", "K6f", "K6r",
-             "K8")
+    rows["K11"]["launches"] = paths["flow_k11"]["K11"]
+    order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K11", "K6d", "K6f",
+             "K6r", "K8")
     for k in order:
         r = rows[k]
         print(f"phase 4: {r['name']}: {r['ms']:.3f} ms kernel vs {r['plain_ms']:.3f} ms "
@@ -1420,7 +1714,9 @@ def main() -> int:
             "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms,
             "ms_per_frame_models": ms_models, "ms_mesh": mesh_ms, "paths": paths,
             "ms_rebin_1m": rebin_ms, "device_ms_rebin_1m": rebin_dev,
-            "ms_per_frame_1m_by_variant": step_ms},
+            "ms_per_frame_1m_by_variant": step_ms, "ms_image_1080p": splat_ms,
+            "ms_per_frame_backends": step_ms_backends, "grid_frames_s": grid_s,
+            "k11_overflow_phase2": k11_over},
             indent=1))
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": device}))

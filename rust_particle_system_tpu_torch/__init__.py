@@ -5,11 +5,14 @@ stays beside it) to one NVIDIA H100.  It imports torch and never jax.  The
 layout mirrors the JAX package, so each module's counterpart has the same name:
 
     core/      params dataclass, SoA particle state, SPH kernel math
-    ops/       grid build; ops/cuda/ holds the wrappers of the CUDA kernels
+    ops/       grid build (slot table), the grid step and the all-pairs
+               oracle step; ops/cuda/ holds the wrappers of the CUDA kernels
                (csrc/*.cu), each beside its plain PyTorch version
     models/    the SPH fluid (plane-resident state, classic or pair-packed
-               layout), the N-body, the flow field and the attractor
-    render/    the general splat and the plane rasterizer of the fused frame
+               layout; or the grid and oracle backends), the N-body, the
+               flow field and the attractor
+    render/    the general splat, the cell-binned splat and the plane
+               rasterizer of the fused frame
     parallel/  the band-sharded mesh: one process per band of cell rows
                (torch.distributed), its halos, step and rendered frame
     runtime/   host-loop driver, validators, CLI

@@ -21,6 +21,7 @@ import torch
 from .core.params import SimParams
 from .core.state import ParticleState
 from .models.attractor import AttractorParams
+from .models.base import model_device
 from .models.flow_field import FlowFieldParams
 from .models.nbody import NBodyParams
 from .ops.cuda.rebin import SENTINEL
@@ -56,9 +57,11 @@ def params_to_numpy(params) -> dict:
     return out
 
 
-def plane_state_from_numpy(arrays, device="cpu") -> PlaneState:
-    """``state/<field>`` arrays -> the port's PlaneState on ``device``.  ``n`` is
-    not stored by the JAX checkpoint; it is the live count plus ``lost``."""
+def plane_state_from_numpy(arrays, device="cuda") -> PlaneState:
+    """``state/<field>`` arrays -> the port's PlaneState on ``device`` (the
+    card unless the caller asks for the CPU).  ``n`` is not stored by the JAX
+    checkpoint; it is the live count plus ``lost``."""
+    device = model_device(device, "plane_state_from_numpy")
     planes = {k: torch.as_tensor(np.array(arrays[f"state/{k}"], np.float32),
                                  device=device).contiguous()
               for k in ("px", "py", "vx", "vy", "idsf")}
@@ -69,8 +72,10 @@ def plane_state_from_numpy(arrays, device="cpu") -> PlaneState:
                       n=live + lost)
 
 
-def particle_state_from_numpy(arrays, device="cpu") -> ParticleState:
-    """``state/pos`` ... ``state/frame`` (and ``state/ids``) -> a ParticleState."""
+def particle_state_from_numpy(arrays, device="cuda") -> ParticleState:
+    """``state/pos`` ... ``state/frame`` (and ``state/ids``) -> a ParticleState
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = model_device(device, "particle_state_from_numpy")
     t = {k: torch.as_tensor(np.array(arrays[f"state/{k}"], np.float32), device=device)
          for k in ("pos", "vel", "color")}
     ids = arrays.get("state/ids")
@@ -94,9 +99,10 @@ def state_to_numpy(state) -> dict:
     return out
 
 
-def load_npz(path: str, device="cpu"):
+def load_npz(path: str, device="cuda"):
     """(state, params or None) from a checkpoint written by either package: a
-    PlaneState if it holds planes, else a ParticleState."""
+    PlaneState if it holds planes, else a ParticleState, on ``device`` (the
+    card unless the caller asks for the CPU)."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     from_numpy = plane_state_from_numpy if "state/px" in arrays else particle_state_from_numpy

@@ -71,7 +71,7 @@ class Attractor:
     def create(cls, bounds=DEFAULT_BOUNDS, render_spec=None, device="cuda") -> "Attractor":
         return cls(render_spec=render_spec or RenderSpec(),
                    bounds=tuple(float(b) for b in bounds),
-                   device=model_device(device, "Attractor"))
+                   device=model_device(device, "Attractor.create"))
 
     def default_params(self) -> AttractorParams:
         return make_attractor_params(bounds=self.bounds)

@@ -12,13 +12,13 @@ from typing import Any, Protocol
 import torch
 
 
-def model_device(device, model: str) -> torch.device:
-    """The device a model runs on: the card unless the caller asks for the
-    CPU, with no silent fallback when there is no card."""
+def model_device(device, caller: str) -> torch.device:
+    """The device a model or a loader runs on: the card unless the caller asks
+    for the CPU, with no silent fallback when there is no card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"{model}.create: device 'cuda' requested but torch.cuda is not "
+            f"{caller}: device 'cuda' requested but torch.cuda is not "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return device
 

@@ -110,7 +110,7 @@ class FlowField:
     def create(cls, bounds=DEFAULT_BOUNDS, render_spec=None, device="cuda") -> "FlowField":
         return cls(render_spec=render_spec or RenderSpec(max_radius_px=3),
                    bounds=tuple(float(b) for b in bounds),
-                   device=model_device(device, "FlowField"))
+                   device=model_device(device, "FlowField.create"))
 
     def default_params(self) -> FlowFieldParams:
         return make_flow_params(bounds=self.bounds)

@@ -69,7 +69,7 @@ class NBody:
     def create(cls, bounds=DEFAULT_BOUNDS, render_spec=None, device="cuda") -> "NBody":
         return cls(render_spec=render_spec or RenderSpec(max_radius_px=3),
                    bounds=tuple(float(b) for b in bounds),
-                   device=model_device(device, "NBody"))
+                   device=model_device(device, "NBody.create"))
 
     def default_params(self) -> NBodyParams:
         return make_nbody_params(bounds=self.bounds)

@@ -44,6 +44,7 @@ SIGNATURES = {
     "rps_pair_force": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
     "rps_nbody_accel": [_P, _P, _I, _F, _F, _F, _P],
     "rps_splat_planes": [_P] * 6 + [_I] * 10 + [_F] * 3 + [_P],
+    "rps_splat_cells": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
 }
 
 _lib = None

@@ -116,7 +116,7 @@ def plane_state_from_particles(state: ParticleState, spec: GridSpec) -> PlaneSta
     if n > MAX_IDS:
         raise ValueError(f"plane-resident ids are exact only to 2^24 (got {n})")
     gh, gw, C = spec.gh, spec.gw, spec.capacity
-    grid = build_grid(spec, state.pos)
+    grid = build_grid(spec, state.pos, with_table=False)
     idsf = state.ids.to(torch.float32)
     packed = torch.cat([state.pos, state.vel, idsf[:, None]], dim=-1)[grid.perm.long()]
     fills = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)

@@ -7,6 +7,8 @@ Counterpart of ``rust_particle_system_tpu/runtime/cli.py``:
         --set gravity=400 --render out.png --stats
     python -m rust_particle_system_tpu_torch.runtime.cli --model nbody --n 16384 \\
         --frames 100 --render nbody.png
+    python -m rust_particle_system_tpu_torch.runtime.cli --backend grid --n 50000 \\
+        --frames 300 --set gravity=400 --render out.png --stats
     python -m rust_particle_system_tpu_torch.runtime.cli --device cpu --n 2000 \\
         --frames 20 --resume jax_checkpoint.npz --save state.npz
 
@@ -26,25 +28,46 @@ import torch
 
 from .. import interop
 from ..models import MODEL_FAMILIES
+from ..models.sph import BACKENDS as SPH_BACKENDS
 from ..ops.cuda.resident import PlaneState
 from ..render import to_srgb_u8
 from ..utils.png import write_png
 from .simulation import Simulation
 
 NOT_PORTED = {
-    "video": "ROADMAP Queue 1 #13 (the video writer needs PIL or ffmpeg)",
+    "video": "ROADMAP Queue 1 #2, the interactive tier (the video writer needs PIL or "
+             "ffmpeg)",
 }
 
 
-def build_model(name: str, n: int, device: str):
+def backend_refusal(name: str, backend: str | None) -> str | None:
+    """Why ``--backend`` cannot run for ``--model name``, or None.  The SPH
+    fluid takes the JAX package's backends; the N-body runs K8 for ``auto``
+    and ``pallas`` alike and has no plain jnp path on the card; the other
+    families have one path and ignore ``backend``."""
+    if backend is None:
+        return None
+    if name == "sph" and backend not in SPH_BACKENDS:
+        return f"sph backend {backend!r} is not one of {SPH_BACKENDS}"
+    if name == "nbody" and backend not in ("auto", "pallas"):
+        return (f"nbody backend {backend!r}: the port runs auto|pallas (K8); "
+                "it has no plain jnp path on the card")
+    return None
+
+
+def build_model(name: str, n: int, device: str, backend: str | None = None):
+    """The model behind ``--model``/``--backend``, as the JAX CLI builds it
+    (``backend`` as :func:`backend_refusal` accepts it)."""
     if name == "sph":
-        return MODEL_FAMILIES["sph"].create(n=n, device=device)
+        return MODEL_FAMILIES["sph"].create(n=n, device=device, backend=backend or "auto")
     return MODEL_FAMILIES[name].create(device=device)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Particle simulation on PyTorch + CUDA")
     ap.add_argument("--model", choices=sorted(MODEL_FAMILIES), default="sph")
+    ap.add_argument("--backend", default=None,
+                    help="sph: auto|pallas|grid|oracle; nbody: auto|pallas|jnp")
     ap.add_argument("--n", type=int, default=50_000)
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -67,7 +90,11 @@ def main(argv=None) -> int:
             print(f"--{flag} is not yet ported ({where})", file=sys.stderr)
             return 2
 
-    model = build_model(args.model, args.n, args.device)
+    refusal = backend_refusal(args.model, args.backend)
+    if refusal is not None:
+        print(f"--backend: {refusal}", file=sys.stderr)
+        return 2
+    model = build_model(args.model, args.n, args.device, args.backend)
     sim = Simulation(model, n=args.n, seed=args.seed)
     if args.resume:
         state, params = interop.load_npz(args.resume, device=model.device)

@@ -5,7 +5,8 @@ eagerly, so the driver is a plain host loop: each frame enqueues its kernels on
 the current stream and returns without waiting for the card.  ``update_params``
 is the egui-slider analog (`src/parameter_gui.rs:78-103`): the next frame
 simply passes the new scalars by value.  Any model family drives through it:
-the SPH fluid's state is a ``PlaneState``, the others' a ``ParticleState``.
+the SPH fluid's pallas backend carries a ``PlaneState``, its grid and oracle
+backends and the other models a ``ParticleState``.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ class Simulation:
         check_param_ranges(**kwargs)
         if "smoothing_radius" in kwargs and isinstance(self.params, SimParams):
             radius = float(kwargs.pop("smoothing_radius"))
-            grid = self.model.grid
-            if radius > min(grid.cell_size, grid.cell_width):
+            grid = getattr(self.model, "grid", None)
+            if grid is not None and radius > min(grid.cell_size, grid.cell_width):
                 # The 3x3 neighbourhood sees one cell in every direction: a radius
                 # above the cell size would silently miss interactions.
                 raise ValueError(
@@ -103,25 +104,23 @@ class Simulation:
 
     def stats(self) -> dict:
         """Validate the current state and return summary statistics; raises
-        ValueError on violated invariants.  Plane states also report the grid
-        occupancy and ``lost``, and raise on any lost particle."""
-        from .debug import validate_state
+        ValueError on violated invariants.  Models with a grid also report its
+        occupancy and overflow (``validate_grid`` of the current state's
+        binning, keys ``grid_*``); plane states report ``lost`` and raise on
+        any lost particle."""
+        from .debug import validate_grid, validate_state
 
         pstate = self.particle_state()
         out = validate_state(pstate, self.params)
+        spec = getattr(self.model, "grid", None)
+        if spec is not None:
+            grid = build_grid(spec, pstate.pos)
+            gstats = validate_grid(grid, spec, pstate.n)
+            out.update({f"grid_{k}": v for k, v in gstats.items()})
         if not isinstance(self.state, PlaneState):
             return out
         lost = int(self.state.lost)
-        grid = build_grid(self.model.grid, pstate.pos)
-        counts = (grid.starts[1:] - grid.starts[:-1]).cpu()
-        used = counts > 0
-        out.update({
-            "grid_cells_used": int(used.sum()),
-            "grid_max_occupancy": int(counts.max()) if counts.numel() else 0,
-            "grid_mean_occupancy": float(counts[used].float().mean()) if used.any() else 0.0,
-            "grid_overflow": int(grid.overflow),
-            "lost": lost,
-        })
+        out["lost"] = lost
         if lost:
             raise ValueError(
                 f"plane-resident state has dropped {lost} particles at the initial "

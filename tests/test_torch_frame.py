@@ -42,7 +42,7 @@ def _carried(jps):
     arrays = {f"state/{k}": np.asarray(getattr(jps, k)) for k in PLANES}
     arrays["state/frame"] = np.asarray(jps.frame)
     arrays["state/lost"] = np.asarray(jps.lost)
-    return interop.plane_state_from_numpy(arrays)
+    return interop.plane_state_from_numpy(arrays, device="cpu")
 
 
 def _setup(seed, n=300, vmax=10.0, gravity=120.0, shader_delay=0, frame=0, rs=2):

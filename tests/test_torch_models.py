@@ -46,7 +46,8 @@ def _port_params(jp):
 
 def _port_state(js):
     return interop.particle_state_from_numpy(
-        {f"state/{f}": np.asarray(getattr(js, f)) for f in ("pos", "vel", "color", "frame")})
+        {f"state/{f}": np.asarray(getattr(js, f)) for f in ("pos", "vel", "color", "frame")},
+        device="cpu")
 
 
 def _jax_setup(name, n, seed=0):
@@ -161,7 +162,7 @@ def test_cli_runs_each_model(tmp_path, capsys, name):
     sim = Simulation(models.MODEL_FAMILIES[name].create(device="cpu"), n=300, seed=0)
     sim.run(4)
     np.testing.assert_array_equal(_read_png(path), to_srgb_u8(sim.render()).numpy())
-    state, params = interop.load_npz(str(ckpt))
+    state, params = interop.load_npz(str(ckpt), device="cpu")
     assert params == sim.params and state.frame == 4
     np.testing.assert_array_equal(state.pos.numpy(), sim.state.pos.numpy())
     assert cli.main(["--model", name, "--device", "cpu", "--n", "300", "--frames", "1",
@@ -181,7 +182,7 @@ def test_checkpoints_cross_packages(tmp_path, name):
     js = step(js, jp)
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save(path, js, jp)
-    ts, tp = interop.load_npz(path)
+    ts, tp = interop.load_npz(path, device="cpu")
     assert tp == _port_params(jp) and ts.ids is None
     _compare(name, STEPS[name](ts, tp), step(js, jp), 2)
     back = str(tmp_path / "port.npz")

@@ -191,7 +191,7 @@ def test_pack2_plane_steps_match_jax_on_carried_state(rng, geom):
     for _ in range(3):
         tps = interop.plane_state_from_numpy(
             {f"state/{k}": np.asarray(getattr(jps, k))
-             for k in ("px", "py", "vx", "vy", "idsf", "frame", "lost")})
+             for k in ("px", "py", "vx", "vy", "idsf", "frame", "lost")}, device="cpu")
         jps, tps = step(jps), model.step(tps, tp)
         jpos, jvel, jids = _by_id(jps)
         tpos, tvel, tids = _by_id(tps)

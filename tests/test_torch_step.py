@@ -113,7 +113,7 @@ def test_interop_jax_checkpoint_resumes_in_port(rng, tmp_path):
     jps = dataclasses.replace(jps, frame=jnp.asarray(5, jnp.int32))
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save(path, jps, jp)
-    state, params = interop.load_npz(path)
+    state, params = interop.load_npz(path, device="cpu")
     assert params == tp and state.frame == 5 and state.n == tps.n
     for f in PLANES:
         np.testing.assert_array_equal(getattr(state, f).numpy(), np.asarray(getattr(jps, f)))
