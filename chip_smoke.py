@@ -37,6 +37,12 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      flow and attractor steps, against the plain path (CPU) on small inputs;
      the spec on the card: at n = 4096, grid_step and one live frame of
      plane_step (K1, K2, K3) against the all-pairs reference_step;
+     the fast mode's stages (protos.mxu_fast_forces): K14a (moments, 1 and 4
+     channels) and K14c (evaluation, 1 and 7 pairs) on its 1M uniform C=64
+     state at max abs <= 1e-5 x max|plain|, and the whole fast_forces on the
+     card against the plain path (CPU) at 30k within 1e-4 of each output's
+     scale; the toolchain probes K13a/K13b within 1e-5 x max|plain| of the
+     plain float32 dot and TF32 emulation, K13c/K13d bit-equal;
   3  the user entry points, each path with the launch counts set to 0 just
      before it and read just after:
      scene  Simulation(SPHFluid.create(n=50_000)), gravity=400, 300 frames;
@@ -70,6 +76,11 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      oracle  SPHFluid.create(n=4096, backend="oracle"), 10 frames, no kernel;
      flow_k11  the flow model at 1M, 10 frames, then splat_cells at 1080p
             (K11 once) against model.render;
+     fastmode  protos.mxu_fast_forces.main(["check"]): 30k particles, the
+            fast mode against its exact oracle within its bars; K14a and
+            K14c twice each, K5 once (the plane init), no other kernel;
+     toolchain  tools.toolchain_smoke.main(): every probe passes; K13a and
+            K13b twice, K13c and K13d once;
      mesh_gloo  the band-sharded step (parallel/) in a world of 4 spawned
             ranks on the one card over gloo (halos staged through the host):
             1M C=128 on 4 x 31 rows, 6 frames, 2 with fuse_tail=False (K3b),
@@ -89,7 +100,10 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      profiler), K12, and plane_step at 1M for variants 6, 5 and 4 in turns;
      K11 (splat_cells) beside the scatter splat at 1080p on the 1M flow
      state, the 50k scene and the 50k grid state; grid_step at 50k and
-     reference_step at 4096 per frame.
+     reference_step at 4096 per frame; the fast mode at 1M (its stages and
+     time modes: A, A+B, A+B+C and end to end by events, each stage's device
+     time by the profiler, beside the production walks K2 + K3 on the same
+     planes).
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -120,6 +134,7 @@ CAMERA = (5.0, -3.0, 1.5)  # tests/test_render.py:170
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+TF32_OPS_S = 495e12  # dense, on the tensor cores
 # Operations per evaluation, counted from the kernels' inner loops (a sqrt,
 # divide or rsqrt counts as one, an FMA as two): a density pair and a force
 # pair (csrc/sph.cu), an N-body pair (csrc/nbody.cu), and a (slot, pixel) of
@@ -133,10 +148,18 @@ def ops_raster(nch: int) -> int:
     return 15 + 2 * nch
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def ops_cheb(nb: int) -> int:
+    """A slot's u and v (6 operations each) and their nb Chebyshev values
+    (2t once, then a multiply and a subtract per term) in the fast-mode
+    kernels (csrc/fast_forces.cu)."""
+    return 2 * (6 + 1 + 2 * (nb - 2))
+
+
+def bound(nbytes: float, ops: float, ops_rate: float = FP32_OPS_S) -> tuple:
     """(ms, what bounds it): the least time the card could take, the larger of
-    the bytes over the HBM rate and the operations over the FP32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    the bytes over the HBM rate and the operations over their type's rate
+    (FP32 unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -182,44 +205,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls (after one warm call),
-    between CUDA events on the current stream."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
-def device_ms(fn, reps: int) -> float:
-    """Milliseconds per call of the card's kernel time, by torch.profiler:
-    the sum of the CUDA kernel rows over ``reps`` calls (after one warm
-    call), so a host-bound call reads its device work, not its enqueue."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
-    return us / 1e3 / reps
 
 
 def require(cond: bool, what: str) -> None:
@@ -326,6 +311,9 @@ def kernel_counters() -> dict:
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
         density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
         force_planes_integrated)
+    from rust_particle_system_tpu_torch.ops.cuda.fast_forces import evaluate, moments
+    from rust_particle_system_tpu_torch.ops.cuda.toolchain_probe import (
+        bf16_broadcast, copy_ids, dot_f32, dot_tf32)
     from rust_particle_system_tpu_torch.render.splat_cells import raster_cells
     from rust_particle_system_tpu_torch.render.splat_planes import raster_planes
 
@@ -333,7 +321,8 @@ def kernel_counters() -> dict:
             "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
             "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
             "K7": rebin_planes_band, "K8": nbody_accel, "K9": hole_fill_pass,
-            "K11": raster_cells, "K12": rebin_compact}
+            "K11": raster_cells, "K12": rebin_compact, "K13a": dot_f32, "K13b": dot_tf32,
+            "K13c": copy_ids, "K13d": bf16_broadcast, "K14a": moments, "K14c": evaluate}
 
 
 def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
@@ -522,8 +511,14 @@ def main() -> int:
         raster_cells, raster_cells_inputs, raster_cells_plain, splat_cells, splat_cells_plain)
     from rust_particle_system_tpu_torch.render.splat_planes import (
         FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
+    from rust_particle_system_tpu_torch.ops.cuda import fast_forces as K14
+    from rust_particle_system_tpu_torch.ops.cuda import toolchain_probe as K13
+    from rust_particle_system_tpu_torch.protos import mxu_fast_forces as FF
     from rust_particle_system_tpu_torch.runtime import cli
+    from rust_particle_system_tpu_torch.runtime.profiling import device_ms
     from rust_particle_system_tpu_torch.runtime.simulation import Simulation
+    from rust_particle_system_tpu_torch.runtime.timing import cuda_ms
+    from rust_particle_system_tpu_torch.tools import toolchain_smoke as smoke
 
     require(Path(port.__file__).resolve().parent.parent == HERE,
             f"imported the port from {port.__file__}, not from this checkout")
@@ -558,15 +553,17 @@ def main() -> int:
     params = make_params(bounds=BOUNDS, gravity=400.0)
     rows = {}
 
-    def record(key, name, source, replaces, err, ms, plain_ms, moved, ops):
-        """One kernel's line; ``moved`` bytes and ``ops`` operations set its
-        bound.  No single PyTorch call computes any of these functions, so
-        library_ms is null."""
-        bound_ms, bound_by = bound(moved, ops)
+    def record(key, name, source, replaces, err, ms, plain_ms, moved, ops, library_ms=None,
+               ops_rate=FP32_OPS_S):
+        """One kernel's line; ``moved`` bytes and ``ops`` operations (at
+        ``ops_rate``) set its bound.  ``library_ms`` is the time of one
+        PyTorch call computing the same function, where there is one (K13,
+        K14); no single call computes K1-K12's, so theirs is null."""
+        bound_ms, bound_by = bound(moved, ops, ops_rate)
         rows[key] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None}
+                     "bound_by": bound_by, "library_ms": library_ms}
 
     # K5 on the 1M uniform binning.
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1145,6 +1142,163 @@ def main() -> int:
     print(f"phase 2: K11 within rtol/atol 1e-4 of its plain version at 1080p, capacity 64 "
           f"({k11_err:.2e}), overflow equal {k11_over}; and of the scatter splat where 0")
 
+    # K14a and K14c, the fast mode's stages A and C (protos.mxu_fast_forces),
+    # on its time-mode state: 1M uniform, capacity 64, the default bounds.
+    # The init spills the few particles of full cells into neighbours,
+    # outside their cell, where the Chebyshev basis does not hold (|u| up to
+    # ~2.7, T_12 ~1e8, spread by the transfers); those slots are parked as
+    # the walks park deferred slots (walk_positions).  Pass 1 (1 channel, 1
+    # pair) gives rho and P~, pass 2 (4 channels, 7 pairs) runs on them.
+    # Each call against its plain version on the same inputs at max abs <=
+    # 1e-5 x max|plain| (the sums over slots and over b run in another order
+    # than torch.bmm's).  Library: one torch.bmm on precomputed Chebyshev
+    # tiles, timed only: [4 nc, NB, C] (w T_a) x [4 nc, C, NB] (T_b) for
+    # K14a; for K14c [nc, C, NB^2] (T_a T_b per slot) x [nc, NB^2, 7] (L).
+    fm_spec, fm_ps, fm_vx, fm_vy, fm_cs = FF.time_inputs("cuda")
+    fmx, fmy = R.walk_positions(fm_ps.px, fm_ps.py, fm_spec)
+    fm_live = fmx < 5e5
+    fm_one = torch.where(fm_live, 1.0, 0.0)
+    fnc, fcap = fm_spec.num_cells, fm_spec.capacity
+    _, fu, fv = K14.cell_uv(fmx, fmy, fm_spec, FF.H)
+    require(bool(((fu.abs() <= 1.0) & (fv.abs() <= 1.0)).all()), "a walk slot outside its cell")
+    fm_errs = {}
+
+    def check_fm(label, got, want) -> float:
+        scale = float(want.abs().max())
+        err = max_abs(got, want)
+        require(err <= 1e-5 * scale, f"{label} differs from its plain version: max abs "
+                f"{err:.3e} > 1e-5 x {scale:.3e}")
+        fm_errs[label] = err / scale
+        return err
+
+    m1 = K14.moments(fmx, fmy, [fm_one], fm_spec, FF.H)
+    check_fm("K14a, 1 channel", m1, K14.moments_plain(fmx, fmy, [fm_one], fm_spec, FF.H))
+    l1 = FF.transfers(m1, [(0, 0)], fm_cs)
+    (rho_fm,) = K14.evaluate(fmx, fmy, l1, fm_spec, FF.H, 1)
+    check_fm("K14c, 1 pair", rho_fm, K14.evaluate_plain(fmx, fmy, l1, fm_spec, FF.H, 1)[0])
+    rho_fm = rho_fm.clamp_min(1e-6)
+    w4 = [fm_one, torch.where(fm_live, FF.K_PRESS * (rho_fm - FF.RHO0) / (rho_fm * rho_fm), 0.0),
+          fm_vx, fm_vy]
+    m4 = K14.moments(fmx, fmy, w4, fm_spec, FF.H)
+    k14a_err = check_fm("K14a, 4 channels", m4, K14.moments_plain(fmx, fmy, w4, fm_spec, FF.H))
+    l7 = FF.transfers(m4, FF.PAIRS_2, fm_cs)
+    e7 = K14.evaluate(fmx, fmy, l7, fm_spec, FF.H, 7)
+    k14c_err = max(check_fm(f"K14c, pair {p}", g, q) for p, (g, q) in enumerate(
+        zip(e7, K14.evaluate_plain(fmx, fmy, l7, fm_spec, FF.H, 7))))
+    nb = K14.check_deg(12)
+    tu = torch.stack(K14.cheb_cols(fu, nb), 1)  # [nc, NB, C]
+    tv = torch.stack(K14.cheb_cols(fv, nb), -1)  # [nc, C, NB]
+    wt = torch.stack([torch.where(fm_live, w, 0.0).reshape(fnc, fcap) for w in w4], 1)
+    lib_a = ((wt[:, :, None, :] * tu[:, None]).reshape(4 * fnc, nb, fcap),
+             tv[:, None].expand(fnc, 4, fcap, nb).reshape(4 * fnc, fcap, nb))
+    phi = (tu.transpose(1, 2)[..., None] * tv[:, :, None, :]).reshape(fnc, fcap, nb * nb)
+    lt = (l7.reshape(fnc, 7, 16, 16)[:, :, :nb, :nb].reshape(fnc, 7, nb * nb)
+          .transpose(1, 2).contiguous())
+    lib_a_out = torch.bmm(*lib_a).reshape(fnc, 4, nb, nb)
+    lib_c_out = torch.where(fm_live.reshape(fnc, fcap, 1), torch.bmm(phi, lt), 0.0)
+    e7_all = torch.stack([e.reshape(fnc, fcap) for e in e7], -1)
+    lib_dev = (max_abs(lib_a_out, m4.reshape(fnc, 4, 16, 16)[..., :nb, :nb])
+               / float(lib_a_out.abs().max()),
+               max_abs(lib_c_out, e7_all) / float(e7_all.abs().max()))
+    nlive_fm = int(fm_live.sum())
+    record("K14a", "K14a fast-mode moments (4 channels)",
+           "rust_particle_system_tpu_torch/csrc/fast_forces.cu", "protos/mxu_fast_forces.py:182",
+           k14a_err, cuda_ms(lambda: K14.moments(fmx, fmy, w4, fm_spec, FF.H), 20),
+           cuda_ms(lambda: K14.moments_plain(fmx, fmy, w4, fm_spec, FF.H), 5),
+           nbytes(fmx, fmy, *w4, m4), nlive_fm * (ops_cheb(nb) + 4 * (nb + 2 * nb * nb)),
+           cuda_ms(lambda: torch.bmm(*lib_a), 20))
+    record("K14c", "K14c fast-mode evaluation (7 pairs)",
+           "rust_particle_system_tpu_torch/csrc/fast_forces.cu", "protos/mxu_fast_forces.py:264",
+           k14c_err, cuda_ms(lambda: K14.evaluate(fmx, fmy, l7, fm_spec, FF.H, 7), 20),
+           cuda_ms(lambda: K14.evaluate_plain(fmx, fmy, l7, fm_spec, FF.H, 7), 5),
+           nbytes(fmx, fmy, *e7) + 4 * fnc * 7 * nb * nb,
+           nlive_fm * (ops_cheb(nb) + 7 * 2 * (nb * nb + nb)), cuda_ms(lambda: torch.bmm(phi, lt), 20))
+    print(f"phase 2: K14a/K14c on the 1M C=64 fast-mode state ({nlive_fm} walk slots, "
+          f"{int(fm_ps.live.sum()) - nlive_fm} spilled slots parked) within 1e-5 x "
+          f"max|plain| (max abs / max|plain| {json.dumps(fm_errs)}); the library bmm calls "
+          f"{lib_dev[0]:.2e} / {lib_dev[1]:.2e} from the kernels")
+    # The whole fast_forces at 30k: card (K14a, K14c) vs plain path (CPU).
+    cspec, cps = FF.uniform_planes(30_000, FF.CHECK_BOUNDS, 64, "cuda", seed=3)
+    gvel = np.random.default_rng(4)
+    cvx, cvy = (torch.where(cps.live, torch.from_numpy(
+        (30.0 * gvel.standard_normal(tuple(cps.px.shape))).astype(np.float32)).cuda(), 0.0)
+        for _ in range(2))
+    ccs = FF.build_transfers(FF.H)
+    got_card = FF.fast_forces(cps.px, cps.py, cvx, cvy, cspec, FF.H, ccs.cuda())
+    got_cpu = FF.fast_forces(cps.px.cpu(), cps.py.cpu(), cvx.cpu(), cvy.cpu(), cspec, FF.H, ccs)
+    clive = cps.live.cpu()
+    ff_err = {}
+    for fname, g, q in zip(FF.NAMES, got_card, got_cpu):
+        scale = float(q[clive].abs().max())
+        ff_err[fname] = max_abs(g.cpu(), q, clive) / scale
+        require(ff_err[fname] <= 1e-4, f"fast_forces {fname} on the card differs from the "
+                f"plain path beyond 1e-4 of its scale ({ff_err[fname]:.2e})")
+    print(f"phase 2: fast_forces at 30k, card vs plain path (CPU), max abs / scale "
+          f"{json.dumps(ff_err)}")
+
+    # K13a-d, the toolchain probes, against their plain versions (K13a/b on
+    # the card, in float64 where they sum, at max abs <= 1e-5 x max|plain|;
+    # K13c/d bit for bit against the CPU).  Library: torch.matmul in FP32
+    # (K13a) and with allow_tf32 set (K13b), torch.mul (K13c); none for K13d.
+    da, db = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
+    k13_err = {}
+    for key, fn, plain in (("K13a", K13.dot_f32, K13.dot_f32_plain),
+                           ("K13b", K13.dot_tf32, K13.dot_tf32_plain)):
+        want = plain(da, db)
+        k13_err[key] = max_abs(fn(da, db), want)
+        require(k13_err[key] <= 1e-5 * float(want.abs().max()),
+                f"{key} differs from its plain version by {k13_err[key]:.3e}")
+    ov, oo, _ = smoke.onehot_inputs()
+    tov, too = torch.from_numpy(ov).cuda(), torch.from_numpy(oo).cuda()
+    require(torch.equal(K13.dot_f32(tov, too), K13.dot_f32_plain(tov, too)),
+            "K13a's one-hot product differs from its plain version")
+    onehot_ms = (cuda_ms(lambda: K13.dot_f32(tov, too), 20),
+                 cuda_ms(lambda: K13.dot_f32_plain(tov, too), 5), cuda_ms(lambda: tov @ too, 20))
+    xid = torch.from_numpy(smoke.ids_inputs())
+    k13c = K13.copy_ids(xid.cuda()).cpu()
+    xbf = smoke.bf16_inputs()
+    k13d = K13.bf16_broadcast(xbf.cuda()).cpu()
+    require(torch.equal(k13c.view(torch.int32), K13.copy_ids_plain(xid).view(torch.int32))
+            and torch.equal(k13d.view(torch.int32),
+                            K13.bf16_broadcast_plain(xbf).view(torch.int32)),
+            "K13c or K13d differs from its plain version")
+    xid, xbf = xid.cuda(), xbf.cuda()
+
+    def tf32_matmul():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return da @ db
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    dot_ops = 2 * 128 ** 3
+    record("K13a", "K13a probe: FP32 dot (128^3)",
+           "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:71",
+           k13_err["K13a"], cuda_ms(lambda: K13.dot_f32(da, db), 20),
+           cuda_ms(lambda: K13.dot_f32_plain(da, db), 5), 3 * nbytes(da), dot_ops,
+           cuda_ms(lambda: da @ db, 20))
+    record("K13b", "K13b probe: TF32 mma.sync dot (128^3)",
+           "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:71",
+           k13_err["K13b"], cuda_ms(lambda: K13.dot_tf32(da, db), 20),
+           cuda_ms(lambda: K13.dot_tf32_plain(da, db), 5), 3 * nbytes(da), dot_ops,
+           cuda_ms(tf32_matmul, 20), ops_rate=TF32_OPS_S)
+    record("K13c", "K13c probe: id copy x * 1.0",
+           "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:138",
+           0.0, cuda_ms(lambda: K13.copy_ids(xid), 20),
+           cuda_ms(lambda: K13.copy_ids_plain(xid), 20), 2 * nbytes(xid), xid.numel(),
+           cuda_ms(lambda: torch.mul(xid, 1.0), 20))
+    record("K13d", "K13d probe: bf16 broadcast-reshape",
+           "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "protos/bf16_repro.py:31",
+           0.0, cuda_ms(lambda: K13.bf16_broadcast(xbf), 20),
+           cuda_ms(lambda: K13.bf16_broadcast_plain(xbf), 20), nbytes(xbf) + 2 * nbytes(xbf),
+           0)
+    print(f"phase 2: K13a/K13b within 1e-5 x max|plain| of the plain FP32 dot and the TF32 "
+          f"emulation (max abs {k13_err['K13a']:.2e} / {k13_err['K13b']:.2e}); K13a's one-hot "
+          f"product ([8, 256] x [256, 128]: {onehot_ms[0]:.4f} ms, plain {onehot_ms[1]:.3f}, "
+          f"torch.matmul {onehot_ms[2]:.4f}), K13c (ids and subnormals) and K13d (bf16) "
+          f"bit-equal [{card}]")
+
     # The whole step on a small input, in both layouts: kernels (card) vs
     # plain versions (CPU).
     sb = (-90.0, 90.0, -45.0, 45.0)
@@ -1553,6 +1707,30 @@ def main() -> int:
           f"1e-4 of model.render ({max_abs(kf, wantf):.2e}); overflow at capacity 64 would "
           f"be {overf64}; launches {launches}")
 
+    # fastmode: the fast mode's check through its entry point (30k, against
+    # its exact oracle within its bars; it prints each output's error).  Its
+    # state comes from the plane init (K5 once).
+    reset()
+    rc = FF.main(["check"])
+    torch.cuda.synchronize()
+    launches = read("fastmode")
+    want_fm = {"K14a": 2, "K14c": 2, "K5": 1}
+    require(rc == 0, f"mxu_fast_forces check exited {rc} (an output beyond its bar)")
+    require(all(launches[k] == want_fm.get(k, 0) for k in launches),
+            f"fastmode: unexpected launches {launches}")
+    print(f"phase 3: mxu_fast_forces check (30k) within its bars; launches {launches}")
+
+    # toolchain: every probe of the toolchain smoke test passes.
+    reset()
+    rc = smoke.main([])
+    torch.cuda.synchronize()
+    launches = read("toolchain")
+    want_k13 = {"K13a": 2, "K13b": 2, "K13c": 1, "K13d": 1}
+    require(rc == 0, f"toolchain_smoke exited {rc}")
+    require(all(launches[k] == want_k13.get(k, 0) for k in launches),
+            f"toolchain: unexpected launches {launches}")
+    print(f"phase 3: toolchain_smoke all PASS; launches {launches}")
+
     mesh_ms = mesh_worlds(paths, card)
 
     for k in ("K1", "K2", "K3", "K4", "K5"):
@@ -1697,12 +1875,22 @@ def main() -> int:
     print(f"phase 4: 1M uniform C=128 plane_step ms/frame by rebin variant (in turns) "
           f"{json.dumps(step_ms)} [{card}]")
     rows["K11"]["launches"] = paths["flow_k11"]["K11"]
+    # The fast mode at 1M: its stages and time modes through its entry point.
+    for mode in ("stages", "time"):
+        print(f"phase 4: mxu_fast_forces {mode} [{card}]", flush=True)
+        require(FF.main([mode]) == 0, f"mxu_fast_forces {mode} failed")
+    for k in ("K14a", "K14c"):
+        rows[k]["launches"] = paths["fastmode"][k]
+    for k in ("K13a", "K13b", "K13c", "K13d"):
+        rows[k]["launches"] = paths["toolchain"][k]
     order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K11", "K6d", "K6f",
-             "K6r", "K8")
+             "K6r", "K8", "K13a", "K13b", "K13c", "K13d", "K14a", "K14c")
     for k in order:
         r = rows[k]
-        print(f"phase 4: {r['name']}: {r['ms']:.3f} ms kernel vs {r['plain_ms']:.3f} ms "
-              f"plain, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        lib = "" if r["library_ms"] is None else f", one PyTorch call {r['library_ms']:.4f} ms"
+        print(f"phase 4: {r['name']}: {r['ms']:.4f} ms kernel vs {r['plain_ms']:.3f} ms "
+              f"plain, bound {r['bound_ms']:.5f} ms ({r['bound_by']}){lib}; launches "
+              f"{r['launches']} [{card}]")
 
     result = {"kernels": [rows[k] for k in order]}
     if args.out:

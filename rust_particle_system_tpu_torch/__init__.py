@@ -15,7 +15,9 @@ layout mirrors the JAX package, so each module's counterpart has the same name:
                rasterizer of the fused frame
     parallel/  the band-sharded mesh: one process per band of cell rows
                (torch.distributed), its halos, step and rendered frame
-    runtime/   host-loop driver, validators, CLI
+    runtime/   host-loop driver, validators, CLI, timing and profiling helpers
+    protos/    the fast mode (a lossy moment-transfer force), run as a script
+    tools/     the toolchain smoke test of the card's numerics
     utils/     the PNG writer
     interop    state and params to and from the JAX checkpoint layout
 """
