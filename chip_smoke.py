@@ -39,10 +39,13 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      plane_step (K1, K2, K3) against the all-pairs reference_step;
      the fast mode's stages (protos.mxu_fast_forces): K14a (moments, 1 and 4
      channels) and K14c (evaluation, 1 and 7 pairs) on its 1M uniform C=64
-     state at max abs <= 1e-5 x max|plain|, and the whole fast_forces on the
-     card against the plain path (CPU) at 30k within 1e-4 of each output's
-     scale; the toolchain probes K13a/K13b within 1e-5 x max|plain| of the
-     plain float32 dot and TF32 emulation, K13c/K13d bit-equal;
+     state, as its timing modes feed it and with the spilled slots parked,
+     at max abs <= 1e-5 x max|plain|; its C=128 contraction forms K14d-f
+     (protos.fastmode_c128) at 8,768 cells, the same bar; the whole
+     fast_forces on the card against the plain path (CPU) at 30k within
+     1e-4 of each output's scale; the toolchain probes K13a/K13b within
+     1e-5 x max|plain| of the plain float32 dot and TF32 emulation,
+     K13c/K13d/K13e bit-equal;
   3  the user entry points, each path with the launch counts set to 0 just
      before it and read just after:
      scene  Simulation(SPHFluid.create(n=50_000)), gravity=400, 300 frames;
@@ -79,8 +82,9 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      fastmode  protos.mxu_fast_forces.main(["check"]): 30k particles, the
             fast mode against its exact oracle within its bars; K14a and
             K14c twice each, K5 once (the plane init), no other kernel;
+     fastmode_c128  protos.fastmode_c128.main(["4"]): K14d-f 5 times each;
      toolchain  tools.toolchain_smoke.main(): every probe passes; K13a and
-            K13b twice, K13c and K13d once;
+            K13b twice, K13c, K13d and K13e once;
      mesh_gloo  the band-sharded step (parallel/) in a world of 4 spawned
             ranks on the one card over gloo (halos staged through the host):
             1M C=128 on 4 x 31 rows, 6 frames, 2 with fuse_tail=False (K3b),
@@ -101,9 +105,9 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      K11 (splat_cells) beside the scatter splat at 1080p on the 1M flow
      state, the 50k scene and the 50k grid state; grid_step at 50k and
      reference_step at 4096 per frame; the fast mode at 1M (its stages and
-     time modes: A, A+B, A+B+C and end to end by events, each stage's device
-     time by the profiler, beside the production walks K2 + K3 on the same
-     planes).
+     time modes in one call: A, A+B, A+B+C and end to end by events, each
+     stage's device time by the profiler, beside the production walks K2 +
+     K3 on the same planes).
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -312,8 +316,9 @@ def kernel_counters() -> dict:
         density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
         force_planes_integrated)
     from rust_particle_system_tpu_torch.ops.cuda.fast_forces import evaluate, moments
+    from rust_particle_system_tpu_torch.ops.cuda.fastmode_c128 import a_dot, a_vpu, c_vpu
     from rust_particle_system_tpu_torch.ops.cuda.toolchain_probe import (
-        bf16_broadcast, copy_ids, dot_f32, dot_tf32)
+        bf16_broadcast, bf16_outer, copy_ids, dot_f32, dot_tf32)
     from rust_particle_system_tpu_torch.render.splat_cells import raster_cells
     from rust_particle_system_tpu_torch.render.splat_planes import raster_planes
 
@@ -322,7 +327,8 @@ def kernel_counters() -> dict:
             "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
             "K7": rebin_planes_band, "K8": nbody_accel, "K9": hole_fill_pass,
             "K11": raster_cells, "K12": rebin_compact, "K13a": dot_f32, "K13b": dot_tf32,
-            "K13c": copy_ids, "K13d": bf16_broadcast, "K14a": moments, "K14c": evaluate}
+            "K13c": copy_ids, "K13d": bf16_broadcast, "K13e": bf16_outer, "K14a": moments,
+            "K14c": evaluate, "K14d": a_dot, "K14e": a_vpu, "K14f": c_vpu}
 
 
 def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
@@ -513,6 +519,8 @@ def main() -> int:
         FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
     from rust_particle_system_tpu_torch.ops.cuda import fast_forces as K14
     from rust_particle_system_tpu_torch.ops.cuda import toolchain_probe as K13
+    from rust_particle_system_tpu_torch.ops.cuda import fastmode_c128 as K14dF
+    from rust_particle_system_tpu_torch.protos import fastmode_c128 as C128
     from rust_particle_system_tpu_torch.protos import mxu_fast_forces as FF
     from rust_particle_system_tpu_torch.runtime import cli
     from rust_particle_system_tpu_torch.runtime.profiling import device_ms
@@ -1144,20 +1152,22 @@ def main() -> int:
 
     # K14a and K14c, the fast mode's stages A and C (protos.mxu_fast_forces),
     # on its time-mode state: 1M uniform, capacity 64, the default bounds.
-    # The init spills the few particles of full cells into neighbours,
-    # outside their cell, where the Chebyshev basis does not hold (|u| up to
-    # ~2.7, T_12 ~1e8, spread by the transfers); those slots are parked as
-    # the walks park deferred slots (walk_positions).  Pass 1 (1 channel, 1
-    # pair) gives rho and P~, pass 2 (4 channels, 7 pairs) runs on them.
-    # Each call against its plain version on the same inputs at max abs <=
-    # 1e-5 x max|plain| (the sums over slots and over b run in another order
-    # than torch.bmm's).  Library: one torch.bmm on precomputed Chebyshev
-    # tiles, timed only: [4 nc, NB, C] (w T_a) x [4 nc, C, NB] (T_b) for
-    # K14a; for K14c [nc, C, NB^2] (T_a T_b per slot) x [nc, NB^2, 7] (L).
+    # Both force passes as fast_forces runs them: pass 1 (1 channel, 1 pair)
+    # gives rho and P~, pass 2 (4 channels, 7 pairs) runs on them.  Each call
+    # against its plain version on the same inputs at max abs <= 1e-5 x
+    # max|plain| (the sums over slots and over b run in another order than
+    # torch.bmm's), twice: on the planes as the time and stages modes feed
+    # them, and with the slots the init spilled out of their full cells
+    # parked as the walks park deferred slots (walk_positions).  A spilled
+    # slot lies outside its cell, where the Chebyshev basis does not hold
+    # (|u| up to ~2.7, T_12 ~1e8): its terms swamp the scale of the first
+    # run, so the second holds every other slot.  Library: one torch.bmm on
+    # precomputed Chebyshev tiles, timed only: [4 nc, NB, C] (w T_a) x
+    # [4 nc, C, NB] (T_b) for K14a; for K14c [nc, C, NB^2] (T_a T_b per
+    # slot) x [nc, NB^2, 7] (L).
     fm_spec, fm_ps, fm_vx, fm_vy, fm_cs = FF.time_inputs("cuda")
     fmx, fmy = R.walk_positions(fm_ps.px, fm_ps.py, fm_spec)
     fm_live = fmx < 5e5
-    fm_one = torch.where(fm_live, 1.0, 0.0)
     fnc, fcap = fm_spec.num_cells, fm_spec.capacity
     _, fu, fv = K14.cell_uv(fmx, fmy, fm_spec, FF.H)
     require(bool(((fu.abs() <= 1.0) & (fv.abs() <= 1.0)).all()), "a walk slot outside its cell")
@@ -1171,20 +1181,29 @@ def main() -> int:
         fm_errs[label] = err / scale
         return err
 
-    m1 = K14.moments(fmx, fmy, [fm_one], fm_spec, FF.H)
-    check_fm("K14a, 1 channel", m1, K14.moments_plain(fmx, fmy, [fm_one], fm_spec, FF.H))
-    l1 = FF.transfers(m1, [(0, 0)], fm_cs)
-    (rho_fm,) = K14.evaluate(fmx, fmy, l1, fm_spec, FF.H, 1)
-    check_fm("K14c, 1 pair", rho_fm, K14.evaluate_plain(fmx, fmy, l1, fm_spec, FF.H, 1)[0])
-    rho_fm = rho_fm.clamp_min(1e-6)
-    w4 = [fm_one, torch.where(fm_live, FF.K_PRESS * (rho_fm - FF.RHO0) / (rho_fm * rho_fm), 0.0),
-          fm_vx, fm_vy]
-    m4 = K14.moments(fmx, fmy, w4, fm_spec, FF.H)
-    k14a_err = check_fm("K14a, 4 channels", m4, K14.moments_plain(fmx, fmy, w4, fm_spec, FF.H))
-    l7 = FF.transfers(m4, FF.PAIRS_2, fm_cs)
-    e7 = K14.evaluate(fmx, fmy, l7, fm_spec, FF.H, 7)
-    k14c_err = max(check_fm(f"K14c, pair {p}", g, q) for p, (g, q) in enumerate(
-        zip(e7, K14.evaluate_plain(fmx, fmy, l7, fm_spec, FF.H, 7))))
+    def fm_passes(x, y, live, tag):
+        """Both passes through K14a/K14c, each call held to its plain
+        version: (pass 2's weights, moments, transfers, evaluations, K14a's
+        and K14c's max abs error)."""
+        one = torch.where(live, 1.0, 0.0)
+        m1 = K14.moments(x, y, [one], fm_spec, FF.H)
+        check_fm(f"K14a, 1 channel{tag}", m1, K14.moments_plain(x, y, [one], fm_spec, FF.H))
+        l1 = FF.transfers(m1, [(0, 0)], fm_cs)
+        (rho,) = K14.evaluate(x, y, l1, fm_spec, FF.H, 1)
+        check_fm(f"K14c, 1 pair{tag}", rho, K14.evaluate_plain(x, y, l1, fm_spec, FF.H, 1)[0])
+        rho = rho.clamp_min(1e-6)
+        w = [one, torch.where(live, FF.K_PRESS * (rho - FF.RHO0) / (rho * rho), 0.0),
+             fm_vx, fm_vy]
+        m = K14.moments(x, y, w, fm_spec, FF.H)
+        err_a = check_fm(f"K14a, 4 channels{tag}", m, K14.moments_plain(x, y, w, fm_spec, FF.H))
+        lt = FF.transfers(m, FF.PAIRS_2, fm_cs)
+        e = K14.evaluate(x, y, lt, fm_spec, FF.H, 7)
+        err_c = max(check_fm(f"K14c, pair {p}{tag}", g, q) for p, (g, q) in enumerate(
+            zip(e, K14.evaluate_plain(x, y, lt, fm_spec, FF.H, 7))))
+        return w, m, lt, e, err_a, err_c
+
+    fm_passes(fm_ps.px, fm_ps.py, fm_ps.live, " (as fed)")
+    w4, m4, l7, e7, k14a_err, k14c_err = fm_passes(fmx, fmy, fm_live, "")
     nb = K14.check_deg(12)
     tu = torch.stack(K14.cheb_cols(fu, nb), 1)  # [nc, NB, C]
     tv = torch.stack(K14.cheb_cols(fv, nb), -1)  # [nc, C, NB]
@@ -1213,10 +1232,43 @@ def main() -> int:
            cuda_ms(lambda: K14.evaluate_plain(fmx, fmy, l7, fm_spec, FF.H, 7), 5),
            nbytes(fmx, fmy, *e7) + 4 * fnc * 7 * nb * nb,
            nlive_fm * (ops_cheb(nb) + 7 * 2 * (nb * nb + nb)), cuda_ms(lambda: torch.bmm(phi, lt), 20))
-    print(f"phase 2: K14a/K14c on the 1M C=64 fast-mode state ({nlive_fm} walk slots, "
-          f"{int(fm_ps.live.sum()) - nlive_fm} spilled slots parked) within 1e-5 x "
-          f"max|plain| (max abs / max|plain| {json.dumps(fm_errs)}); the library bmm calls "
+    print(f"phase 2: K14a/K14c on the 1M C=64 fast-mode state as fed and with its "
+          f"{int(fm_ps.live.sum()) - nlive_fm} spilled slots parked ({nlive_fm} walk slots) "
+          f"within 1e-5 x max|plain| (max abs / max|plain| {json.dumps(fm_errs)}); the "
+          f"library bmm calls "
           f"{lib_dev[0]:.2e} / {lib_dev[1]:.2e} from the kernels")
+    # K14d-f, the stage A and C contraction forms at C=128 on a synthetic
+    # basis (protos.fastmode_c128), at its 8,768 cells, against their plain
+    # versions at max abs <= 1e-5 x max|plain|.  Library: one torch.bmm on
+    # the precomputed basis tiles, timed only.
+    cw, cl = C128.inputs(C128.NCP, "cuda")
+    p13 = K14dF.basis(cw, K14dF.B1)
+    p176 = K14dF.basis(cw, K14dF.B2P)
+    pw13, p13t = (p13 * cw[:, None, :]).contiguous(), p13.transpose(1, 2).contiguous()
+    c128_lib = {"K14d": lambda: torch.bmm(pw13, p13t),
+                "K14e": lambda: torch.bmm(p176, cw[:, :, None]),
+                "K14f": lambda: torch.bmm(cl[:, None, :], p176)}
+    c128_err = {}
+    for key, name, line, fn, plain, kargs, moved, ops in (
+            ("K14d", "K14d C=128 stage A, batched mini-dot", 91, K14dF.a_dot, K14dF.a_dot_plain,
+             (cw,), 4 * C128.NCP * (128 + 169), C128.NCP * (3 * 13 * 128 + 2 * 169 * 128)),
+            ("K14e", "K14e C=128 stage A, multiply-reduce", 119, K14dF.a_vpu, K14dF.a_vpu_plain,
+             (cw,), 4 * C128.NCP * (128 + 176), C128.NCP * 4 * 176 * 128),
+            ("K14f", "K14f C=128 stage C, multiply-reduce", 147, K14dF.c_vpu, K14dF.c_vpu_plain,
+             (cw, cl), 4 * C128.NCP * (128 + 176 + 128), C128.NCP * 4 * 176 * 128)):
+        got, want = fn(*kargs), plain(*kargs)
+        scale = float(want.abs().max())
+        c128_err[key] = max_abs(got, want)
+        require(c128_err[key] <= 1e-5 * scale, f"{key} differs from its plain version: max "
+                f"abs {c128_err[key]:.3e} > 1e-5 x {scale:.3e}")
+        lib_out = c128_lib[key]().reshape(want.shape)
+        require(max_abs(lib_out, want) <= 1e-5 * scale, f"{key}'s library call differs")
+        record(key, name, "rust_particle_system_tpu_torch/csrc/fastmode_c128.cu",
+               f"protos/fastmode_c128.py:{line}", c128_err[key],
+               cuda_ms(lambda: fn(*kargs), 20), cuda_ms(lambda: plain(*kargs), 5), moved, ops,
+               cuda_ms(c128_lib[key], 20))
+    print(f"phase 2: K14d-f at {C128.NCP} cells x 128 slots within 1e-5 x max|plain| "
+          f"(max abs {json.dumps(c128_err)}); the library bmm calls too")
     # The whole fast_forces at 30k: card (K14a, K14c) vs plain path (CPU).
     cspec, cps = FF.uniform_planes(30_000, FF.CHECK_BOUNDS, 64, "cuda", seed=3)
     gvel = np.random.default_rng(4)
@@ -1236,10 +1288,12 @@ def main() -> int:
     print(f"phase 2: fast_forces at 30k, card vs plain path (CPU), max abs / scale "
           f"{json.dumps(ff_err)}")
 
-    # K13a-d, the toolchain probes, against their plain versions (K13a/b on
+    # K13a-e, the toolchain probes, against their plain versions (K13a/b on
     # the card, in float64 where they sum, at max abs <= 1e-5 x max|plain|;
-    # K13c/d bit for bit against the CPU).  Library: torch.matmul in FP32
-    # (K13a) and with allow_tf32 set (K13b), torch.mul (K13c); none for K13d.
+    # K13c/d/e bit for bit against the CPU).  Library: torch.matmul in FP32
+    # (K13a) and with allow_tf32 set (K13b), torch.mul (K13c), the broadcast
+    # view's float() (K13d, one copy kernel; bit-equal to K13d); none for
+    # K13e (two casts and a multiply: no single call).
     da, db = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
     k13_err = {}
     for key, fn, plain in (("K13a", K13.dot_f32, K13.dot_f32_plain),
@@ -1258,11 +1312,21 @@ def main() -> int:
     k13c = K13.copy_ids(xid.cuda()).cpu()
     xbf = smoke.bf16_inputs()
     k13d = K13.bf16_broadcast(xbf.cuda()).cpu()
+    oa, ob = smoke.bf16_outer_inputs()
+    k13e = K13.bf16_outer(oa.cuda(), ob.cuda()).cpu()
     require(torch.equal(k13c.view(torch.int32), K13.copy_ids_plain(xid).view(torch.int32))
             and torch.equal(k13d.view(torch.int32),
-                            K13.bf16_broadcast_plain(xbf).view(torch.int32)),
-            "K13c or K13d differs from its plain version")
-    xid, xbf = xid.cuda(), xbf.cuda()
+                            K13.bf16_broadcast_plain(xbf).view(torch.int32))
+            and torch.equal(k13e.view(torch.int32), K13.bf16_outer_plain(oa, ob).view(torch.int32)),
+            "K13c, K13d or K13e differs from its plain version")
+    xid, xbf, oa, ob = xid.cuda(), xbf.cuda(), oa.cuda(), ob.cuda()
+
+    def bf16_library():
+        return xbf[0:1].expand(8, 128).float().view(4, 256)
+
+    require(torch.equal(bf16_library().view(torch.int32),
+                        K13.bf16_broadcast(xbf).view(torch.int32)),
+            "K13d's library call differs from K13d")
 
     def tf32_matmul():
         prev = torch.backends.cuda.matmul.allow_tf32
@@ -1292,11 +1356,16 @@ def main() -> int:
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "protos/bf16_repro.py:31",
            0.0, cuda_ms(lambda: K13.bf16_broadcast(xbf), 20),
            cuda_ms(lambda: K13.bf16_broadcast_plain(xbf), 20), nbytes(xbf) + 2 * nbytes(xbf),
-           0)
+           0, cuda_ms(bf16_library, 20))
+    record("K13e", "K13e probe: bf16 outer product",
+           "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "protos/bf16_repro.py:65",
+           0.0, cuda_ms(lambda: K13.bf16_outer(oa, ob), 20),
+           cuda_ms(lambda: K13.bf16_outer_plain(oa, ob), 20), nbytes(oa, ob) + 4 * k13e.numel(),
+           k13e.numel())
     print(f"phase 2: K13a/K13b within 1e-5 x max|plain| of the plain FP32 dot and the TF32 "
           f"emulation (max abs {k13_err['K13a']:.2e} / {k13_err['K13b']:.2e}); K13a's one-hot "
           f"product ([8, 256] x [256, 128]: {onehot_ms[0]:.4f} ms, plain {onehot_ms[1]:.3f}, "
-          f"torch.matmul {onehot_ms[2]:.4f}), K13c (ids and subnormals) and K13d (bf16) "
+          f"torch.matmul {onehot_ms[2]:.4f}), K13c (ids and subnormals), K13d and K13e (bf16) "
           f"bit-equal [{card}]")
 
     # The whole step on a small input, in both layouts: kernels (card) vs
@@ -1720,12 +1789,24 @@ def main() -> int:
             f"fastmode: unexpected launches {launches}")
     print(f"phase 3: mxu_fast_forces check (30k) within its bars; launches {launches}")
 
+    # fastmode_c128: the C=128 contraction forms through their entry point
+    # (4 timed calls of each after one warm call).
+    reset()
+    rc = C128.main(["4"])
+    torch.cuda.synchronize()
+    launches = read("fastmode_c128")
+    want_c128 = {"K14d": 5, "K14e": 5, "K14f": 5}
+    require(rc == 0, f"fastmode_c128 exited {rc}")
+    require(all(launches[k] == want_c128.get(k, 0) for k in launches),
+            f"fastmode_c128: unexpected launches {launches}")
+    print(f"phase 3: fastmode_c128 timed its three forms; launches {launches}")
+
     # toolchain: every probe of the toolchain smoke test passes.
     reset()
     rc = smoke.main([])
     torch.cuda.synchronize()
     launches = read("toolchain")
-    want_k13 = {"K13a": 2, "K13b": 2, "K13c": 1, "K13d": 1}
+    want_k13 = {"K13a": 2, "K13b": 2, "K13c": 1, "K13d": 1, "K13e": 1}
     require(rc == 0, f"toolchain_smoke exited {rc}")
     require(all(launches[k] == want_k13.get(k, 0) for k in launches),
             f"toolchain: unexpected launches {launches}")
@@ -1875,16 +1956,19 @@ def main() -> int:
     print(f"phase 4: 1M uniform C=128 plane_step ms/frame by rebin variant (in turns) "
           f"{json.dumps(step_ms)} [{card}]")
     rows["K11"]["launches"] = paths["flow_k11"]["K11"]
-    # The fast mode at 1M: its stages and time modes through its entry point.
-    for mode in ("stages", "time"):
-        print(f"phase 4: mxu_fast_forces {mode} [{card}]", flush=True)
-        require(FF.main([mode]) == 0, f"mxu_fast_forces {mode} failed")
+    # The fast mode at 1M: its stages and time modes through its entry point,
+    # in one call (one input set, one timing of the production walks).
+    print(f"phase 4: mxu_fast_forces stages time [{card}]", flush=True)
+    require(FF.main(["stages", "time"]) == 0, "mxu_fast_forces stages time failed")
     for k in ("K14a", "K14c"):
         rows[k]["launches"] = paths["fastmode"][k]
-    for k in ("K13a", "K13b", "K13c", "K13d"):
+    for k in ("K13a", "K13b", "K13c", "K13d", "K13e"):
         rows[k]["launches"] = paths["toolchain"][k]
+    for k in ("K14d", "K14e", "K14f"):
+        rows[k]["launches"] = paths["fastmode_c128"][k]
     order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K11", "K6d", "K6f",
-             "K6r", "K8", "K13a", "K13b", "K13c", "K13d", "K14a", "K14c")
+             "K6r", "K8", "K13a", "K13b", "K13c", "K13d", "K13e", "K14a", "K14c", "K14d",
+             "K14e", "K14f")
     for k in order:
         r = rows[k]
         lib = "" if r["library_ms"] is None else f", one PyTorch call {r['library_ms']:.4f} ms"
@@ -1904,7 +1988,8 @@ def main() -> int:
             "ms_rebin_1m": rebin_ms, "device_ms_rebin_1m": rebin_dev,
             "ms_per_frame_1m_by_variant": step_ms, "ms_image_1080p": splat_ms,
             "ms_per_frame_backends": step_ms_backends, "grid_frames_s": grid_s,
-            "k11_overflow_phase2": k11_over},
+            "k11_overflow_phase2": k11_over, "k14_err_over_scale": fm_errs,
+            "k14dF_max_abs": c128_err},
             indent=1))
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": device}))

@@ -1,4 +1,4 @@
-// K13a-d: toolchain probes.  Not hot-path kernels: each pins one numeric
+// K13a-e: toolchain probes.  Not hot-path kernels: each pins one numeric
 // property of this toolchain and card that the port relies on, as the TPU
 // probes of tools/tpu_smoke.py and protos/bf16_repro.py pinned Mosaic's.
 //
@@ -18,10 +18,13 @@
 //      the build has no -ftz=true or --use_fast_math.
 // K13d rps_probe_bf16      row 0 of an [R, W] bfloat16 array broadcast over
 //      the R rows, viewed as [R / 2, 2W], written as float32.  Replaces
-//      protos/bf16_repro.py:31 (kernel, and its round-4 variant at :65).
+//      protos/bf16_repro.py:31 (kernel).
+// K13e rps_probe_bf16_outer  o[r, i, j] = bf16(a[r, i]) * bf16(b[r, j]),
+//      the product rounded to bfloat16, written as float32: the cast-then-
+//      new-axis outer product of protos/bf16_repro.py:65 (main_round4).
 //
-// Bound: each moves a few KB and does at most 128^3 multiply-adds; launch
-// latency sets their time.
+// Bound: each moves at most a few hundred KB and does at most 128^3
+// multiply-adds; launch latency sets their time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +93,19 @@ __global__ void bf16_kernel(const __nv_bfloat16* __restrict__ x, float* __restri
   if (i < n) o[i] = __bfloat162float(x[i % W]);
 }
 
+// Thread (r, i, j) of o [R, A, B]; a is [R, Wa] (its first A columns are
+// read), b is [R, B].  Each input is rounded to bfloat16, the product of two
+// bfloat16 values is rounded to bfloat16 (mul.rn.bf16), then widened.
+__global__ void bf16_outer_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                  float* __restrict__ o, int n, int Wa, int A, int B) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= n) return;
+  const int j = f % B, i = (f / B) % A, r = f / (A * B);
+  const __nv_bfloat16 x = __float2bfloat16_rn(a[r * Wa + i]);
+  const __nv_bfloat16 y = __float2bfloat16_rn(b[r * B + j]);
+  o[f] = __bfloat162float(__hmul(x, y));
+}
+
 }  // namespace
 
 // a: [M, K], b: [K, N], c: [M, N], all float32 row-major.
@@ -124,5 +140,16 @@ extern "C" int rps_probe_bf16(const void* x, float* o, int rows, int W, void* st
   const int n = rows * W;
   bf16_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), o, n, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a: [rows, Wa] float32 (columns 0..A-1 used), b: [rows, B] float32,
+// o: [rows, A, B] float32.
+extern "C" int rps_probe_bf16_outer(const float* a, const float* b, float* o, int rows, int Wa,
+                                    int A, int B, void* stream) {
+  if (rows < 1 || A < 1 || B < 1 || A > Wa) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = rows * A * B;
+  bf16_outer_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, o, n, Wa, A, B);
   return static_cast<int>(cudaGetLastError());
 }

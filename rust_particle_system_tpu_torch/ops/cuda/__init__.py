@@ -15,8 +15,10 @@ version beside it for CPU tensors; each counts its launches in ``.launches``.
     K6  sph.density_pairs, sph.force_pairs_integrated, sph.force_pairs
                                             csrc/sph.cu (pair-packed layout)
     K8  nbody.nbody_accel                   csrc/nbody.cu
-    K13 toolchain_probe.dot_f32, dot_tf32, copy_ids, bf16_broadcast
+    K13 toolchain_probe.dot_f32, dot_tf32, copy_ids, bf16_broadcast, bf16_outer
                                             csrc/toolchain_probe.cu (probes)
     K14 fast_forces.moments (a), fast_forces.evaluate (c)
                                             csrc/fast_forces.cu (the fast mode)
+        fastmode_c128.a_dot (d), a_vpu (e), c_vpu (f)
+                                            csrc/fastmode_c128.cu (its C=128 forms)
 """

@@ -47,10 +47,14 @@ SIGNATURES = {
     "rps_splat_cells": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
     "rps_fm_moments": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
     "rps_fm_eval": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
+    "rps_c128_a_dot": [_P, _P, _I, _P],
+    "rps_c128_a_vpu": [_P, _P, _I, _P],
+    "rps_c128_c_vpu": [_P, _P, _P, _I, _P],
     "rps_probe_dot_f32": [_P] * 3 + [_I] * 3 + [_P],
     "rps_probe_dot_tf32": [_P] * 3 + [_I] * 3 + [_P],
     "rps_probe_copy": [_P, _P, _I, _F, _P],
     "rps_probe_bf16": [_P, _P, _I, _I, _P],
+    "rps_probe_bf16_outer": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib = None

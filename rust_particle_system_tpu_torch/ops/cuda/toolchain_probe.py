@@ -1,8 +1,8 @@
-"""Toolchain probes: kernels K13a-d and their plain PyTorch versions.
+"""Toolchain probes: kernels K13a-e and their plain PyTorch versions.
 
 Counterparts of the probe kernels of ``tools/tpu_smoke.py`` (the in-kernel
 dot at :71 and :104, the id copy at :138) and of ``protos/bf16_repro.py``
-(:31).  Each pins one numeric property of the toolchain and the card that the
+(:31 and :65).  Each pins one numeric property of the toolchain and the card that the
 port relies on (``csrc/toolchain_probe.cu`` says which); the probes that use
 them are ``rust_particle_system_tpu_torch/tools/toolchain_smoke.py``.
 
@@ -10,6 +10,7 @@ them are ``rust_particle_system_tpu_torch/tools/toolchain_smoke.py``.
     K13b dot_tf32         the same on the tensor cores in TF32 (the trap)
     K13c copy_ids         x * 1.0, the 1.0 passed at run time
     K13d bf16_broadcast   bf16 row broadcast, reshape, cast to float32
+    K13e bf16_outer       bf16 casts, then new axes, outer product in bf16
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors, and counts its launches in ``.launches``.
@@ -169,3 +170,36 @@ def bf16_broadcast(x):
 
 
 bf16_broadcast.launches = 0
+
+
+def _check_outer(a, b, width: int) -> None:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] or not 1 <= width <= a.shape[1]:
+        raise ValueError(f"cannot form the outer product of {tuple(a.shape)}[:, :{width}] "
+                         f"and {tuple(b.shape)}")
+
+
+def bf16_outer_plain(a, b, width: int = 40):
+    """Plain version of K13e: the first ``width`` columns of ``a`` [R, Wa]
+    and ``b`` [R, B] cast to bfloat16, given new axes and multiplied in
+    bfloat16 (``[R, width, B]``), cast to float32 (bf16_repro.py:59-62)."""
+    _check_outer(a, b, width)
+    bf = torch.bfloat16
+    return (a[:, :width].to(bf)[:, :, None] * b.to(bf)[:, None, :]).to(torch.float32)
+
+
+def bf16_outer(a, b, width: int = 40):
+    """Kernel K13e: the bfloat16 outer product of ``bf16_outer_plain``."""
+    _check_outer(a, b, width)
+    if _lib.dispatch(a) == "plain":
+        return bf16_outer_plain(a, b, width)
+    _require_matrix(a, b)
+    rows, wa = a.shape
+    nb = b.shape[1]
+    o = torch.empty((rows, width, nb), dtype=torch.float32, device=a.device)
+    _lib.check("rps_probe_bf16_outer", _lib.library().rps_probe_bf16_outer(
+        a.data_ptr(), b.data_ptr(), o.data_ptr(), rows, wa, width, nb, _lib.stream()))
+    bf16_outer.launches += 1
+    return o
+
+
+bf16_outer.launches = 0

@@ -29,7 +29,7 @@ script parses ``sys.argv`` when it is imported).  Run, on a card unless
 ``--device cpu`` is given (the plain versions; ``check`` only):
 
     python -m rust_particle_system_tpu_torch.protos.mxu_fast_forces \\
-        [check|time|stages|both] [deg] [--device cuda|cpu] [--n N]
+        [check|time|stages|both ...] [deg] [--device cuda|cpu] [--n N]
 
 ``check``: 30k particles on (-192, 192, -108, 108), h = 9, capacity 64, vstd
 30: rel-max and rel-rms of each output against ``oracle_forces``, held to
@@ -277,20 +277,19 @@ def production_walks_ms(spec, ps, reps: int = 20) -> float:
     return cuda_ms(lambda: walk_and_integrate(planes, spec, params, True), reps)
 
 
-def time_forces(device, deg: int = 12, n: int = 1_000_000, reps: int = 20) -> dict:
-    """``time``: fast_forces end to end and the production walks, ms by CUDA
+def time_forces(inputs, deg: int = 12, reps: int = 20) -> dict:
+    """``time``: fast_forces end to end on ``time_inputs``, ms by CUDA
     events."""
-    spec, ps, vx, vy, Cs = time_inputs(device, deg, n)
+    spec, ps, vx, vy, Cs = inputs
     return {"fast-mode forces": cuda_ms(
-                lambda: fast_forces(ps.px, ps.py, vx, vy, spec, H, Cs, deg), reps),
-            "production walks (K2 + K3)": production_walks_ms(spec, ps, reps)}
+        lambda: fast_forces(ps.px, ps.py, vx, vy, spec, H, Cs, deg), reps)}
 
 
-def time_stages(device, deg: int = 12, n: int = 1_000_000, reps: int = 20) -> dict:
-    """``stages``: pass 2 (4 moment channels, 7 pairs, 7 evaluations) as A,
-    A+B, A+B+C by CUDA events, each stage alone by the profiler's device
-    time, and the production walks."""
-    spec, ps, vx, vy, Cs = time_inputs(device, deg, n)
+def time_stages(inputs, deg: int = 12, reps: int = 20) -> dict:
+    """``stages``: pass 2 (4 moment channels, 7 pairs, 7 evaluations) on
+    ``time_inputs`` as A, A+B, A+B+C by CUDA events and each stage alone by
+    the profiler's device time."""
+    spec, ps, vx, vy, Cs = inputs
     px, py = ps.px, ps.py
     one = torch.where(ps.live, 1.0, 0.0)
     w4 = [one, one, vx, vy]
@@ -311,44 +310,67 @@ def time_stages(device, deg: int = 12, n: int = 1_000_000, reps: int = 20) -> di
             "A+B+C (+7 evals)": cuda_ms(abc, reps),
             "A device (profiler)": device_ms(a, 5),
             "B device (profiler)": device_ms(lambda: transfers(M, PAIRS_2, Cs), 5),
-            "C device (profiler)": device_ms(lambda: evaluate(px, py, L, spec, H, 7, deg), 5),
-            "production walks (K2 + K3)": production_walks_ms(spec, ps, reps)}
+            "C device (profiler)": device_ms(lambda: evaluate(px, py, L, spec, H, 7, deg), 5)}
 
 
-def main(argv=None) -> int:
+MODES = ("check", "time", "stages", "both")
+
+
+def parse_args(argv):
+    """(modes, deg, device, n) from ``[mode ...] [deg] [--device D] [--n N]``;
+    the modes default to ``both`` (check, then time)."""
     ap = argparse.ArgumentParser(
         prog="python -m rust_particle_system_tpu_torch.protos.mxu_fast_forces",
         description="The fast mode's accuracy against the exact walk (check) and its "
                     "times against the production walks (time, stages).")
-    ap.add_argument("mode", nargs="?", default="both", choices=("check", "time", "stages", "both"))
-    ap.add_argument("deg", nargs="?", type=int, default=12)
+    ap.add_argument("words", nargs="*", metavar="mode|deg",
+                    help=f"modes ({', '.join(MODES)}; default both), then an optional degree "
+                         "(default 12)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (check only)")
     ap.add_argument("--n", type=int, default=None,
                     help="particles (check: 30,000; time and stages: 1,000,000)")
     args = ap.parse_args(argv)
-    check_deg(args.deg)
-    device = model_device(args.device, "mxu_fast_forces")
+    words = list(args.words)
+    deg = int(words.pop()) if words and words[-1].lstrip("-").isdigit() else 12
+    bad = [w for w in words if w not in MODES]
+    if bad:
+        ap.error(f"unknown mode {bad[0]!r} (choose from {', '.join(MODES)})")
+    return words or ["both"], deg, args.device, args.n
+
+
+def main(argv=None) -> int:
+    """Run the modes in order; the timing modes share one 1M input set and
+    one timing of the production walks.  Returns 0, 1 if an output of
+    ``check`` exceeded its bar, 2 if a timing mode was asked for on the CPU."""
+    modes, deg, device_name, n_arg = parse_args(argv)
+    check_deg(deg)
+    device = model_device(device_name, "mxu_fast_forces")
     rc = 0
-    if args.mode in ("check", "both"):
-        n = args.n or 30_000
-        print(f"check: fast mode vs oracle_forces, {n} particles, deg {args.deg}, {device}",
+    if any(m in ("check", "both") for m in modes):
+        n = n_arg or 30_000
+        print(f"check: fast mode vs oracle_forces, {n} particles, deg {deg}, {device}",
               flush=True)
-        for name, (rmax, rrms, scale) in check_forces(device, args.deg, n).items():
+        for name, (rmax, rrms, scale) in check_forces(device, deg, n).items():
             ok = rmax <= BARS[name]
             rc |= not ok
             print(f"  {name:4s}: rel-max {rmax:9.2e}  rel-rms {rrms:9.2e}  (scale "
                   f"{scale:9.3e}; bar {BARS[name]:.0e} {'ok' if ok else 'EXCEEDED'})",
                   flush=True)
-    if args.mode in ("time", "both", "stages"):
+    timers = [time_stages if m == "stages" else time_forces for m in modes if m != "check"]
+    if timers:
         if device.type != "cuda":
             print("time and stages measure the card: run them without --device cpu",
                   file=sys.stderr)
             return 2
-        n = args.n or 1_000_000
-        timer = time_stages if args.mode == "stages" else time_forces
+        n = n_arg or 1_000_000
+        inputs = time_inputs(device, deg, n)
         label = torch.cuda.get_device_name(device)
-        for name, ms in timer(device, args.deg, n).items():
-            print(f"  {name:28s}: {ms:8.3f} ms  ({n} particles, deg {args.deg}, {label})",
+        results = {}
+        for timer in timers:
+            results.update(timer(inputs, deg))
+        results["production walks (K2 + K3)"] = production_walks_ms(inputs[0], inputs[1])
+        for name, ms in results.items():
+            print(f"  {name:28s}: {ms:8.3f} ms  ({n} particles, deg {deg}, {label})",
                   flush=True)
     return int(rc)
 

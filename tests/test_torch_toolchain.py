@@ -1,12 +1,13 @@
-"""Port vs JAX: the toolchain probes' plain halves (K13a-d), and the runtime's
+"""Port vs JAX: the toolchain probes' plain halves (K13a-e), and the runtime's
 timing and profiling helpers on CPU tensors.
 
 The JAX probes (``tools/tpu_smoke.py``) run under
-``pltpu.force_tpu_interpret_mode()``; ``protos/bf16_repro.py::kernel`` runs
-through an interpret-mode ``pallas_call``.  The dot-precision trap itself
-cannot be shown on the CPU: interpret mode computes DEFAULT in float32 and
-torch's CPU matmul ignores ``allow_tf32``, so only its HIGHEST half is held
-to JAX here, and the TF32 emulation is shown to fall outside it.  Bars: the
+``pltpu.force_tpu_interpret_mode()``; ``protos/bf16_repro.py::kernel`` and
+``main_round4``'s kernel run through an interpret-mode ``pallas_call``.  The
+dot-precision trap itself cannot be shown on the CPU: interpret mode computes
+DEFAULT in float32 and torch's CPU matmul ignores ``allow_tf32``, so only its
+HIGHEST half is held to JAX here, and the TF32 emulation is shown to fall
+outside it.  Bars: the
 float32 dot within 1e-4 of JAX's HIGHEST product (JAX's own bar,
 tpu_smoke.py:85); every pass-through, copy and broadcast bit for bit.
 """
@@ -111,6 +112,40 @@ def test_bf16_plain_matches_jax_repro():
     assert smoke.bf16_broadcast_reshape("cpu").startswith("bf16")
 
 
+def test_bf16_outer_plain_matches_jax_round4(monkeypatch):
+    """protos/bf16_repro.py:59-62 (``main_round4``'s kernel, taken from its
+    pallas_call at :65) in interpret mode, on JAX's ones and on seeded
+    non-constant values: the plain K13e gives its bits.  XLA on the CPU keeps
+    a bf16 product in float32 unless told not to (excess precision, on by
+    default); compiled with it off, the product is rounded to bf16 as the
+    kernel's types say, and as K13e rounds it."""
+    kernels = []
+    real = pl.pallas_call
+
+    def spy(kernel, **kw):
+        kernels.append(kernel)
+        return real(kernel, interpret=True, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    _load("protos/bf16_repro.py").main_round4()
+    monkeypatch.undo()
+    (kernel,) = kernels
+    call = jax.jit(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((8, 40, 128), jnp.float32), interpret=True))
+    for a, b in ((torch.ones((8, 128)),) * 2, smoke.bf16_outer_inputs()):
+        ja, jb = jnp.asarray(a.numpy()), jnp.asarray(b.numpy())
+        want = np.asarray(call.lower(ja, jb).compile(
+            compiler_options={"xla_allow_excess_precision": False})(ja, jb))
+        got = K13.bf16_outer_plain(a, b).numpy()
+        assert got.shape == (8, 40, 128) and np.array_equal(_bits(got), _bits(want))
+    # On the seeded values the roundings show: the float32 product of the
+    # bf16 inputs (XLA's default here) is not the bf16 product.
+    exact = (a[:, :40, None].bfloat16().float() * b[:, None, :].bfloat16().float()).numpy()
+    assert np.array_equal(np.asarray(call(ja, jb)), exact)
+    assert not np.array_equal(want, exact)
+    assert smoke.bf16_outer_product("cpu").startswith("bf16")
+
+
 def test_nvcc_flags_keep_subnormals():
     """K13c's property is a build property: no -ftz and no fast math."""
     flags = " ".join(_lib.NVCC_FLAGS).lower()
@@ -122,6 +157,8 @@ def test_probe_wrappers_check_their_inputs():
         K13.dot_f32(torch.zeros((4, 3)), torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="even"):
         K13.bf16_broadcast(torch.zeros((3, 8), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="outer product"):
+        K13.bf16_outer(torch.zeros((8, 16)), torch.zeros((8, 128)))
     meta = torch.zeros((8, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K13.dot_tf32(meta, meta)
@@ -135,12 +172,13 @@ def test_toolchain_main_needs_a_card(capsys):
 
 
 def test_probes_on_the_card():
-    """K13a-d against their plain versions and the four probes (needs a card)."""
+    """K13a-e against their plain versions and the five probes (needs a card)."""
     if not torch.cuda.is_available():
-        pytest.skip("K13a-d run on a CUDA card only")
+        pytest.skip("K13a-e run on a CUDA card only")
     a, b = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
     assert torch.allclose(K13.dot_f32(a, b), K13.dot_f32_plain(a, b), rtol=0, atol=1e-4)
     assert torch.allclose(K13.dot_tf32(a, b), K13.dot_tf32_plain(a, b), rtol=0, atol=1e-3)
+    assert torch.equal(K13.bf16_outer(a, b), K13.bf16_outer_plain(a, b))
     assert smoke.main([]) == 0
 
 
