@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--out results.json] [--mesh]
+    python3 chip_smoke.py [--out results.json] [--mesh | --host-times]
 
 Run from the root of a checkout.  It needs one CUDA card, the CUDA toolkit
 (nvcc) and PyTorch; it imports nothing of JAX.  ``--mesh`` runs phases 0 and 1
 and the mesh worlds of phase 3 alone; on a host with several cards its NCCL
-world then has one rank per card (halos over NVLink).  Phases, one line each:
+world then has one rank per card (halos over NVLink).  ``--host-times`` runs
+phases 0 and 1, the host-time line of phase 4 and K13a, K13c, torch.matmul and
+torch.mul by CUDA events alone: copied into another checkout (a parent
+commit), it times that checkout's wrappers by the same code.  Phases, one
+line each:
 
   0  the device (name, and nvidia-smi's name and power limit);
   1  build every kernel from csrc/ (seconds);
@@ -43,9 +47,15 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      at max abs <= 1e-5 x max|plain|; its C=128 contraction forms K14d-f
      (protos.fastmode_c128) at 8,768 cells, the same bar; the whole
      fast_forces on the card against the plain path (CPU) at 30k within
-     1e-4 of each output's scale; the toolchain probes K13a/K13b within
-     1e-5 x max|plain| of the plain float32 dot and TF32 emulation,
-     K13c/K13d/K13e bit-equal;
+     1e-4 of each output's scale; the toolchain probes K13a bit-equal to the
+     plain float32 dot (128^3 and the one-hot product), K13b within 1e-5 x
+     max|plain| of its TF32 emulation, K13c/K13d/K13e bit-equal, each timed
+     by events in turns with its library call (kernel, library, library,
+     kernel, twice; the median of 4 runs of K13_REPS calls each); the launch
+     path: K13c, K1 and K3 launched under a side stream while the default
+     stream spins, read after that stream's synchronize() alone and held to
+     their plain versions, and one wrapper of each module refusing a
+     float64, a non-contiguous and a mixed-device input with ValueError;
   3  the user entry points, each path with the launch counts set to 0 just
      before it and read just after:
      scene  Simulation(SPHFluid.create(n=50_000)), gravity=400, 300 frames;
@@ -107,7 +117,10 @@ world then has one rank per card (halos over NVLink).  Phases, one line each:
      reference_step at 4096 per frame; the fast mode at 1M (its stages and
      time modes in one call: A, A+B, A+B+C and end to end by events, each
      stage's device time by the profiler, beside the production walks K2 +
-     K3 on the same planes).
+     K3 on the same planes); the host-time line: host microseconds per call
+     of the K1, K2, K3, K4, K13a and K13c wrappers and of torch.mul and
+     torch.matmul, HOST_CALLS calls enqueued with no sync between them,
+     timed by the host clock, then one sync (the median of 5 runs).
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -331,6 +344,158 @@ def kernel_counters() -> dict:
             "K14c": evaluate, "K14d": a_dot, "K14e": a_vpu, "K14f": c_vpu}
 
 
+K13_REPS = 500  # calls per K13 timing, kernel and library alike: resolves a microsecond
+
+
+def in_turns(kernel, library, reps: int = K13_REPS, blocks: int = 2) -> tuple:
+    """(ms of ``kernel``, ms of ``library``) per call by CUDA events: runs of
+    ``reps`` calls in the order kernel, library, library, kernel, ``blocks``
+    times, and the median run of each.  The host's drift weighs on both alike
+    (host-bound calls this small move by tens of percent between runs)."""
+    import statistics
+
+    from rust_particle_system_tpu_torch.runtime.timing import cuda_ms
+
+    runs = {kernel: [], library: []}
+    for _ in range(blocks):
+        for f in (kernel, library, library, kernel):
+            runs[f].append(cuda_ms(f, reps))
+    return statistics.median(runs[kernel]), statistics.median(runs[library])
+HOST_CALLS = 200  # calls enqueued per host-time round (K3 at 1M: ~0.35 s queued)
+
+
+def host_calls() -> dict:
+    """The wrappers of the host-time line on their main-path inputs (the 1M
+    uniform C=128 state one live frame in; K4 its 1080p image, sum rule; K13a
+    and K13c the probes' inputs), with ``torch.mul`` on K13c's input beside
+    them.  Only names the port has had since its probes, so the parent of a
+    change can be timed by the same code."""
+    import torch
+
+    from rust_particle_system_tpu_torch.core.params import make_params
+    from rust_particle_system_tpu_torch.ops.cuda import resident as R
+    from rust_particle_system_tpu_torch.ops.cuda import toolchain_probe as K13
+    from rust_particle_system_tpu_torch.ops.cuda.rebin import rebin_planes
+    from rust_particle_system_tpu_torch.ops.cuda.sph import (
+        density_planes, force_planes_integrated, pressure_terms)
+    from rust_particle_system_tpu_torch.ops.grid import GridSpec
+    from rust_particle_system_tpu_torch.render import RenderSpec
+    from rust_particle_system_tpu_torch.render.splat_planes import (
+        drifted_patch_margin, raster_inputs, raster_planes)
+    from rust_particle_system_tpu_torch.tools import toolchain_smoke as smoke
+
+    spec = GridSpec.from_bounds(BOUNDS, 9.0, 128)
+    params = make_params(bounds=BOUNDS, gravity=400.0)
+    ps = uniform_plane_state(torch, spec, N_1M, seed=31)
+    ps = R.plane_step(dataclasses.replace(ps, frame=params.shader_delay), params, spec)
+    rin = R.predict_planes(ps, params)
+    (npx, npy, nvx, nvy, _), _ = rebin_planes(rin, spec)
+    wx, wy = R.walk_positions(npx, npy, spec)
+    P1, NPo, NPn = pressure_terms(*density_planes(wx, wy, params), params)
+    fargs = (wx, wy, P1, NPn, nvx, nvy, NPo, npx, npy)
+    rs = RenderSpec()
+    k4 = raster_inputs(ps.px, ps.py, ps.vx, ps.vy, ps.live, params.particle_size,
+                       params.max_energy, bounds_static=BOUNDS, grid_spec=spec, render_spec=rs,
+                       margin=drifted_patch_margin(spec, rs, BOUNDS), color_sum=1.0)
+    da, db = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
+    xid = torch.from_numpy(smoke.ids_inputs()).cuda()
+    return {"K1": lambda: rebin_planes(rin, spec),
+            "K2": lambda: density_planes(wx, wy, params),
+            "K3": lambda: force_planes_integrated(*fargs, params),
+            "K4": lambda: raster_planes(*k4, True),
+            "K13a": lambda: K13.dot_f32(da, db),
+            "K13c": lambda: K13.copy_ids(xid),
+            "torch.mul": lambda: torch.mul(xid, 1.0),
+            "torch.matmul": lambda: da @ db}
+
+
+def host_us(calls: dict, n: int = HOST_CALLS, rounds: int = 5) -> dict:
+    """Host microseconds per call of each of ``calls``: ``n`` calls enqueued
+    with no sync between them, timed by the host clock, then one sync; the
+    median of ``rounds`` such runs, after one warm call."""
+    import statistics
+
+    import torch
+
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        per_call = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            per_call.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        out[name] = statistics.median(per_call)
+    return out
+
+
+def flat(out) -> list:
+    """The tensors of a wrapper's result (a tensor, or tuples and lists of
+    them), in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat(o)]
+    return [out]
+
+
+def side_stream_check(launches: dict) -> None:
+    """Each of ``launches`` ({name: (launch, want)}: a wrapper call and its
+    plain version's result on the CPU) under a new stream ``s`` while the
+    default stream spins: the results are read on ``s`` after
+    ``s.synchronize()`` alone, and the default stream must still be busy
+    then.  A kernel launched anywhere but torch's current stream would queue
+    behind the spin and be read unfinished."""
+    import torch
+
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    torch.cuda._sleep(3_000_000_000)  # ~1.7 s on the default stream
+    got = {}
+    with torch.cuda.stream(s):
+        outs = {name: launch() for name, (launch, _) in launches.items()}
+        s.synchronize()
+        for name, out in outs.items():
+            got[name] = [t.cpu() for t in flat(out)]
+    busy = not torch.cuda.default_stream().query()
+    torch.cuda.synchronize()
+    require(busy, "the default stream finished its spin before the side stream's results "
+            "were read: the side-stream check proves nothing")
+    for name, (_, want) in launches.items():
+        require(want(got[name]), f"{name} under a side stream differs from its plain version")
+
+
+def bad_input_checks(cases: dict) -> list:
+    """Each of ``cases`` ({label: (call, a, b)}, ``call(a, b)`` a wrapper on
+    CUDA tensors ``a`` and ``b`` (None for a one-tensor wrapper)) must raise
+    ValueError for a float64 ``a`` (and ``b``), a non-contiguous ``a`` of the
+    same shape and, with ``b``, ``b`` on the CPU.  Returns what was shown."""
+    import torch
+
+    def strided(t):
+        out = torch.empty_strided(t.shape, [2 * st for st in t.stride()], dtype=t.dtype,
+                                  device=t.device)
+        return out.copy_(t)
+
+    shown = []
+    for label, (call, a, b) in cases.items():
+        bad = {"float64": (a.double(), None if b is None else b.double()),
+               "non-contiguous": (strided(a), b)}
+        if b is not None:
+            bad["mixed-device"] = (a, b.cpu())
+        for what, (x, y) in bad.items():
+            require(x.is_cuda and (what == "float64") == (x.dtype == torch.float64)
+                    and (what == "non-contiguous") != x.is_contiguous(), f"{label}: bad input")
+            try:
+                call(x, y)
+            except ValueError:
+                shown.append(f"{label} {what}")
+            else:
+                raise AssertionError(f"{label} took a {what} input without a ValueError")
+    return shown
+
+
 def band_state(n: int, capacity: int, pack2: bool, n_bands: int, seed: int, device):
     """(grid, params, whole PlaneState) of n uniform particles (numpy, from
     ``seed``) on the default grid padded to ``n_bands``, past the warm-up:
@@ -477,6 +642,10 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="run only the device, build and band-sharded mesh phases "
                          "(its NCCL world takes every card)")
+    ap.add_argument("--host-times", action="store_true",
+                    help="run only the device and build phases, the host-time line and "
+                         "K13a/K13c and their library calls by events (to compare two "
+                         "checkouts on one card)")
     args = ap.parse_args()
 
     import numpy as np
@@ -552,6 +721,17 @@ def main() -> int:
     if args.mesh:
         paths = {}
         print(json.dumps({"mesh": mesh_worlds(paths, card), "paths": paths}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    if args.host_times:
+        calls = host_calls()
+        print(f"host us per call ({HOST_CALLS} calls enqueued, host clock, median of 5 runs): "
+              f"{json.dumps(host_us(calls))} [{card}]")
+        events = {}
+        for k, lib in (("K13a", "torch.matmul"), ("K13c", "torch.mul")):
+            events[k], events[lib] = in_turns(calls[k], calls[lib])
+        print(f"ms per call by CUDA events (median of 4 runs of {K13_REPS} calls, in turns): "
+              f"{json.dumps(events)} [{card}]")
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
@@ -1288,26 +1468,30 @@ def main() -> int:
     print(f"phase 2: fast_forces at 30k, card vs plain path (CPU), max abs / scale "
           f"{json.dumps(ff_err)}")
 
-    # K13a-e, the toolchain probes, against their plain versions (K13a/b on
-    # the card, in float64 where they sum, at max abs <= 1e-5 x max|plain|;
-    # K13c/d/e bit for bit against the CPU).  Library: torch.matmul in FP32
-    # (K13a) and with allow_tf32 set (K13b), torch.mul (K13c), the broadcast
-    # view's float() (K13d, one copy kernel; bit-equal to K13d); none for
-    # K13e (two casts and a multiply: no single call).
+    # K13a-e, the toolchain probes, against their plain versions: K13a bit
+    # for bit (k in order, one fmaf a step), K13b at max abs <= 1e-5 x
+    # max|plain| of its TF32 emulation (in float64 where it sums), K13c/d/e
+    # bit for bit against the CPU.  Library: torch.matmul in FP32 (K13a) and
+    # with allow_tf32 set (K13b), torch.mul (K13c), the broadcast view's
+    # float() (K13d, one copy kernel; bit-equal to K13d); none for K13e (two
+    # casts and a multiply: no single call).  Kernel and library are timed
+    # over the same K13_REPS calls.
     da, db = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
     k13_err = {}
     for key, fn, plain in (("K13a", K13.dot_f32, K13.dot_f32_plain),
                            ("K13b", K13.dot_tf32, K13.dot_tf32_plain)):
         want = plain(da, db)
-        k13_err[key] = max_abs(fn(da, db), want)
-        require(k13_err[key] <= 1e-5 * float(want.abs().max()),
+        got = fn(da, db)
+        k13_err[key] = max_abs(got, want)
+        require(torch.equal(got, want) if key == "K13a"
+                else k13_err[key] <= 1e-5 * float(want.abs().max()),
                 f"{key} differs from its plain version by {k13_err[key]:.3e}")
     ov, oo, _ = smoke.onehot_inputs()
     tov, too = torch.from_numpy(ov).cuda(), torch.from_numpy(oo).cuda()
     require(torch.equal(K13.dot_f32(tov, too), K13.dot_f32_plain(tov, too)),
             "K13a's one-hot product differs from its plain version")
-    onehot_ms = (cuda_ms(lambda: K13.dot_f32(tov, too), 20),
-                 cuda_ms(lambda: K13.dot_f32_plain(tov, too), 5), cuda_ms(lambda: tov @ too, 20))
+    onehot_k, onehot_lib = in_turns(lambda: K13.dot_f32(tov, too), lambda: tov @ too)
+    onehot_ms = (onehot_k, cuda_ms(lambda: K13.dot_f32_plain(tov, too), 5), onehot_lib)
     xid = torch.from_numpy(smoke.ids_inputs())
     k13c = K13.copy_ids(xid.cuda()).cpu()
     xbf = smoke.bf16_inputs()
@@ -1337,36 +1521,75 @@ def main() -> int:
             torch.backends.cuda.matmul.allow_tf32 = prev
 
     dot_ops = 2 * 128 ** 3
+    k13a_ms, k13a_lib = in_turns(lambda: K13.dot_f32(da, db), lambda: da @ db)
     record("K13a", "K13a probe: FP32 dot (128^3)",
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:71",
-           k13_err["K13a"], cuda_ms(lambda: K13.dot_f32(da, db), 20),
-           cuda_ms(lambda: K13.dot_f32_plain(da, db), 5), 3 * nbytes(da), dot_ops,
-           cuda_ms(lambda: da @ db, 20))
+           k13_err["K13a"], k13a_ms, cuda_ms(lambda: K13.dot_f32_plain(da, db), 5),
+           3 * nbytes(da), dot_ops, k13a_lib)
+    k13b_ms, k13b_lib = in_turns(lambda: K13.dot_tf32(da, db), tf32_matmul)
     record("K13b", "K13b probe: TF32 mma.sync dot (128^3)",
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:71",
-           k13_err["K13b"], cuda_ms(lambda: K13.dot_tf32(da, db), 20),
-           cuda_ms(lambda: K13.dot_tf32_plain(da, db), 5), 3 * nbytes(da), dot_ops,
-           cuda_ms(tf32_matmul, 20), ops_rate=TF32_OPS_S)
+           k13_err["K13b"], k13b_ms, cuda_ms(lambda: K13.dot_tf32_plain(da, db), 5),
+           3 * nbytes(da), dot_ops, k13b_lib, ops_rate=TF32_OPS_S)
+    k13c_ms, k13c_lib = in_turns(lambda: K13.copy_ids(xid), lambda: torch.mul(xid, 1.0))
     record("K13c", "K13c probe: id copy x * 1.0",
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "tools/tpu_smoke.py:138",
-           0.0, cuda_ms(lambda: K13.copy_ids(xid), 20),
-           cuda_ms(lambda: K13.copy_ids_plain(xid), 20), 2 * nbytes(xid), xid.numel(),
-           cuda_ms(lambda: torch.mul(xid, 1.0), 20))
+           0.0, k13c_ms, cuda_ms(lambda: K13.copy_ids_plain(xid), 20), 2 * nbytes(xid),
+           xid.numel(), k13c_lib)
+    k13d_ms, k13d_lib = in_turns(lambda: K13.bf16_broadcast(xbf), bf16_library)
     record("K13d", "K13d probe: bf16 broadcast-reshape",
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "protos/bf16_repro.py:31",
-           0.0, cuda_ms(lambda: K13.bf16_broadcast(xbf), 20),
-           cuda_ms(lambda: K13.bf16_broadcast_plain(xbf), 20), nbytes(xbf) + 2 * nbytes(xbf),
-           0, cuda_ms(bf16_library, 20))
+           0.0, k13d_ms, cuda_ms(lambda: K13.bf16_broadcast_plain(xbf), 20),
+           nbytes(xbf) + 2 * nbytes(xbf), 0, k13d_lib)
     record("K13e", "K13e probe: bf16 outer product",
            "rust_particle_system_tpu_torch/csrc/toolchain_probe.cu", "protos/bf16_repro.py:65",
-           0.0, cuda_ms(lambda: K13.bf16_outer(oa, ob), 20),
+           0.0, cuda_ms(lambda: K13.bf16_outer(oa, ob), K13_REPS),
            cuda_ms(lambda: K13.bf16_outer_plain(oa, ob), 20), nbytes(oa, ob) + 4 * k13e.numel(),
            k13e.numel())
-    print(f"phase 2: K13a/K13b within 1e-5 x max|plain| of the plain FP32 dot and the TF32 "
-          f"emulation (max abs {k13_err['K13a']:.2e} / {k13_err['K13b']:.2e}); K13a's one-hot "
+    print(f"phase 2: K13a bit-equal to the plain FP32 dot, K13b within 1e-5 x max|plain| of "
+          f"the TF32 emulation (max abs {k13_err['K13b']:.2e}); K13a's one-hot "
           f"product ([8, 256] x [256, 128]: {onehot_ms[0]:.4f} ms, plain {onehot_ms[1]:.3f}, "
-          f"torch.matmul {onehot_ms[2]:.4f}), K13c (ids and subnormals), K13d and K13e (bf16) "
-          f"bit-equal [{card}]")
+          f"torch.matmul {onehot_ms[2]:.4f}, 4 x {K13_REPS} calls each in turns), K13c (ids "
+          f"and subnormals), "
+          f"K13d and K13e (bf16) bit-equal [{card}]")
+
+    # The launch path: kernels under a side stream follow torch's current
+    # stream; one wrapper of each module refuses a float64, a non-contiguous
+    # and a mixed-device input with ValueError.
+    k1_planes, k1_counts = rebin_planes_plain(rin, spec)
+    k1_want = [t.cpu() for t in (*k1_planes, k1_counts)]
+    k3_want = [t.cpu() for t in force_planes_integrated_plain(*fargs, force_scalars(params))]
+    k3_live = fargs[7].cpu() < 5e5
+    side_stream_check({
+        "K13c": (lambda: K13.copy_ids(xid),
+                 lambda got: torch.equal(got[0].view(torch.int32),
+                                         K13.copy_ids_plain(xid.cpu()).view(torch.int32))),
+        "K1": (lambda: rebin_planes(rin, spec),
+               lambda got: len(got) == len(k1_want)
+               and all(torch.equal(x, y) for x, y in zip(got, k1_want))),
+        "K3": (lambda: force_planes_integrated(*fargs, params),
+               lambda got: all(close(x, y, 1e-4, atol, k3_live)
+                               for x, y, atol in zip(got, k3_want, (1e-4, 1e-4, 1e-2, 1e-2))))})
+    k11b = raster_cells_inputs(st50.pos, st50.color, 2.0, BOUNDS, rs_main)
+    refused = bad_input_checks({
+        "toolchain_probe.dot_f32": (K13.dot_f32, da, db),
+        "sph.density_planes": (lambda x, y: density_planes(x, y, params), fpx, fpy),
+        "rebin.rebin_planes": (lambda x, y: rebin_planes([x, y, *rin[2:]], spec), rin[0], rin[1]),
+        "plane_build.cell_planes_aos": (
+            lambda x, y: cell_planes_aos(x, y, spec.num_cells, spec.capacity, fills),
+            packed, grid.starts),
+        "nbody.nbody_accel": (lambda x, y: nbody_accel(x, nparams), pos16, None),
+        "fast_forces.moments": (lambda x, y: K14.moments(x, fmy, [y], fm_spec, FF.H),
+                                fmx, w4[0]),
+        "fastmode_c128.c_vpu": (K14dF.c_vpu, cw, cl),
+        "splat_planes.raster_planes": (
+            lambda x, y: raster_planes(x, y, k4_ins[2], *k4_ins[3:], True),
+            k4_ins[0], k4_ins[1]),
+        "splat_cells.raster_cells": (lambda x, y: raster_cells(x, y, *k11b[2:]),
+                                     k11b[0], k11b[1])})
+    print(f"phase 2: K13c, K1 and K3 under a side stream, read after its synchronize() alone "
+          f"while the default stream spun, equal to their plain versions (K1, K13c bit for "
+          f"bit, K3 at its bars); ValueError for {len(refused)} bad inputs: {refused}")
 
     # The whole step on a small input, in both layouts: kernels (card) vs
     # plain versions (CPU).
@@ -1966,6 +2189,9 @@ def main() -> int:
         rows[k]["launches"] = paths["toolchain"][k]
     for k in ("K14d", "K14e", "K14f"):
         rows[k]["launches"] = paths["fastmode_c128"][k]
+    host = host_us(host_calls())
+    print(f"phase 4: host us per call ({HOST_CALLS} calls enqueued, host clock, median of 5 "
+          f"runs): {json.dumps(host)} [{card}]")
     order = ("K5", "K1", "K7", "K9", "K12", "K2", "K3", "K3b", "K4", "K10", "K11", "K6d", "K6f",
              "K6r", "K8", "K13a", "K13b", "K13c", "K13d", "K13e", "K14a", "K14c", "K14d",
              "K14e", "K14f")
@@ -1989,7 +2215,7 @@ def main() -> int:
             "ms_per_frame_1m_by_variant": step_ms, "ms_image_1080p": splat_ms,
             "ms_per_frame_backends": step_ms_backends, "grid_frames_s": grid_s,
             "k11_overflow_phase2": k11_over, "k14_err_over_scale": fm_errs,
-            "k14dF_max_abs": c128_err},
+            "k14dF_max_abs": c128_err, "host_us_per_call": host},
             indent=1))
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": device}))

@@ -9,11 +9,13 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace rps {
 
 constexpr float kSentinel = 1.0e6f;
 constexpr float kLiveBelow = 0.5f * kSentinel;  // live <=> x < 0.5 * SENTINEL
-constexpr int kMaxChannels = 8;
+constexpr int kMaxChannels = 8;  // also the length of the records' plane arrays
 
 struct Fills {
   float v[kMaxChannels];
@@ -79,5 +81,16 @@ __device__ __forceinline__ void block_count(const bool (&p)[NF], int (&incl)[NF]
 }
 
 inline int block_threads(int C) { return ((C + 31) / 32) * 32; }
+
+// Every C entry rps_<name>(const void* packed, int size) takes its arguments
+// as one record: the bytes of struct rps_<name>_args as this compiler lays it
+// out, which the binding (ops/cuda/_lib.py, RECORDS) packs field by field in
+// native layout.  The entry refuses a record of any other size.
+template <class T>
+inline bool unpack(const void* packed, int size, T* out) {
+  if (packed == nullptr || size != static_cast<int>(sizeof(T))) return false;
+  std::memcpy(out, packed, sizeof(T));
+  return true;
+}
 
 }  // namespace rps

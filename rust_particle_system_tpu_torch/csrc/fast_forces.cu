@@ -152,9 +152,9 @@ __global__ void fm_eval_kernel(const float* __restrict__ px, const float* __rest
 
 // px, py: [nc, C] planes; w_host: n_w (1..4) weight plane pointers; m:
 // [nc, n_w, 256] (written whole).  nb = deg + 1 in 2..16; C <= 256.
-extern "C" int rps_fm_moments(const float* px, const float* py, const float* const* w_host,
-                              float* m, int n_w, int nc, int gw, int C, int nb, float x_min,
-                              float y_min, float h, void* stream) {
+static int fm_moments(const float* px, const float* py, const float* const* w_host, float* m,
+                      int n_w, int nc, int gw, int C, int nb, float x_min, float y_min,
+                      float h, void* stream) {
   if (n_w < 1 || n_w > kMaxWeights || nc < 1 || gw < 1 || C < 1 || C > 256 || nb < 2 ||
       nb > kPad)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -168,9 +168,9 @@ extern "C" int rps_fm_moments(const float* px, const float* py, const float* con
 
 // px, py: [nc, C] planes; L: [nc, n_pairs, 256]; out_host: n_pairs (1..8)
 // output plane pointers ([nc, C] each).  nb = deg + 1 in 2..16; C <= 1024.
-extern "C" int rps_fm_eval(const float* px, const float* py, const float* L,
-                           float* const* out_host, int n_pairs, int nc, int gw, int C, int nb,
-                           float x_min, float y_min, float h, void* stream) {
+static int fm_eval(const float* px, const float* py, const float* L, float* const* out_host,
+                   int n_pairs, int nc, int gw, int C, int nb, float x_min, float y_min,
+                   float h, void* stream) {
   if (n_pairs < 1 || n_pairs > rps::kMaxChannels || nc < 1 || gw < 1 || C < 1 || C > 1024 ||
       nb < 2 || nb > kPad)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -179,4 +179,40 @@ extern "C" int rps_fm_eval(const float* px, const float* py, const float* L,
   fm_eval_kernel<<<nc, rps::block_threads(C), 0, static_cast<cudaStream_t>(stream)>>>(
       px, py, L, out, n_pairs, Geom{gw, C, nb, x_min, y_min, h});
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entries' arguments: the record structs below, common.cuh's rps::unpack.
+struct rps_fm_moments_args {
+  const float* px;
+  const float* py;
+  const float* w[8];  // the first n_w <= kMaxWeights are read
+  float* m;
+  int n_w, nc, gw, C, nb;
+  float x_min, y_min, h;
+  void* stream;
+};
+static_assert(kMaxWeights <= 8, "rps_fm_moments_args holds 8 weight-plane slots");
+
+extern "C" int rps_fm_moments(const void* packed, int size) {
+  rps_fm_moments_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return fm_moments(r.px, r.py, r.w, r.m, r.n_w, r.nc, r.gw, r.C, r.nb, r.x_min, r.y_min,
+                    r.h, r.stream);
+}
+
+struct rps_fm_eval_args {
+  const float* px;
+  const float* py;
+  const float* L;
+  float* out[8];
+  int n_pairs, nc, gw, C, nb;
+  float x_min, y_min, h;
+  void* stream;
+};
+
+extern "C" int rps_fm_eval(const void* packed, int size) {
+  rps_fm_eval_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return fm_eval(r.px, r.py, r.L, r.out, r.n_pairs, r.nc, r.gw, r.C, r.nb, r.x_min, r.y_min,
+                 r.h, r.stream);
 }

@@ -20,6 +20,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kB1 = 13;    // deg-12 1-D basis
@@ -76,24 +78,54 @@ __global__ void c_vpu_kernel(const float* __restrict__ w, const float* __restric
 
 }  // namespace
 
+// Each entry takes its arguments as the record struct rps_<entry>_args
+// (common.cuh, rps::unpack).
+
 // w: [n_cells, 128]; out: [n_cells, 13, 13].
-extern "C" int rps_c128_a_dot(const float* w, float* out, int n_cells, void* stream) {
-  if (n_cells < 1) return static_cast<int>(cudaErrorInvalidValue);
-  a_dot_kernel<<<n_cells, kB1 * kB1, 0, static_cast<cudaStream_t>(stream)>>>(w, out);
+struct rps_c128_a_dot_args {
+  const float* w;
+  float* out;
+  int n_cells;
+  void* stream;
+};
+
+extern "C" int rps_c128_a_dot(const void* packed, int size) {
+  rps_c128_a_dot_args r;
+  if (!rps::unpack(packed, size, &r) || r.n_cells < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a_dot_kernel<<<r.n_cells, kB1 * kB1, 0, static_cast<cudaStream_t>(r.stream)>>>(r.w, r.out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // w: [n_cells, 128]; out: [n_cells, 176].
-extern "C" int rps_c128_a_vpu(const float* w, float* out, int n_cells, void* stream) {
-  if (n_cells < 1) return static_cast<int>(cudaErrorInvalidValue);
-  a_vpu_kernel<<<n_cells, kB2P, 0, static_cast<cudaStream_t>(stream)>>>(w, out);
+struct rps_c128_a_vpu_args {
+  const float* w;
+  float* out;
+  int n_cells;
+  void* stream;
+};
+
+extern "C" int rps_c128_a_vpu(const void* packed, int size) {
+  rps_c128_a_vpu_args r;
+  if (!rps::unpack(packed, size, &r) || r.n_cells < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a_vpu_kernel<<<r.n_cells, kB2P, 0, static_cast<cudaStream_t>(r.stream)>>>(r.w, r.out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // w: [n_cells, 128], l: [n_cells, 176]; out: [n_cells, 128].
-extern "C" int rps_c128_c_vpu(const float* w, const float* l, float* out, int n_cells,
-                              void* stream) {
-  if (n_cells < 1) return static_cast<int>(cudaErrorInvalidValue);
-  c_vpu_kernel<<<n_cells, kCP, 0, static_cast<cudaStream_t>(stream)>>>(w, l, out);
+struct rps_c128_c_vpu_args {
+  const float* w;
+  const float* l;
+  float* out;
+  int n_cells;
+  void* stream;
+};
+
+extern "C" int rps_c128_c_vpu(const void* packed, int size) {
+  rps_c128_c_vpu_args r;
+  if (!rps::unpack(packed, size, &r) || r.n_cells < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  c_vpu_kernel<<<r.n_cells, kCP, 0, static_cast<cudaStream_t>(r.stream)>>>(r.w, r.l, r.out);
   return static_cast<int>(cudaGetLastError());
 }

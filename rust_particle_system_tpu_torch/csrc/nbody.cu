@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // i per block; also the j tile
@@ -53,12 +55,21 @@ __global__ void nbody_kernel(const float2* __restrict__ pos, float2* __restrict_
 
 // pos, acc: [n, 2] f32 (acc is written).  rep_soft = repulsion * softening,
 // eps2 = softening^2, both formed in f32 by the caller.
-extern "C" int rps_nbody_accel(const float* pos, float* acc, int n, float g_const,
-                               float rep_soft, float eps2, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  nbody_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(pos), reinterpret_cast<float2*>(acc), n, g_const,
-      rep_soft, eps2);
+// (The record struct rps_<entry>_args of each entry: common.cuh, rps::unpack.)
+struct rps_nbody_accel_args {
+  const float* pos;
+  float* acc;
+  int n;
+  float g_const, rep_soft, eps2;
+  void* stream;
+};
+
+extern "C" int rps_nbody_accel(const void* packed, int size) {
+  rps_nbody_accel_args r;
+  if (!rps::unpack(packed, size, &r) || r.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  nbody_kernel<<<(r.n + kThreads - 1) / kThreads, kThreads, 0,
+                 static_cast<cudaStream_t>(r.stream)>>>(
+      reinterpret_cast<const float2*>(r.pos), reinterpret_cast<float2*>(r.acc), r.n,
+      r.g_const, r.rep_soft, r.eps2);
   return static_cast<int>(cudaGetLastError());
 }

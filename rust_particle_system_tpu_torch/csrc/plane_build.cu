@@ -35,9 +35,8 @@ __global__ void plane_build_kernel(const float* __restrict__ rows,
 
 }  // namespace
 
-extern "C" int rps_plane_build(const float* rows, const int* starts, float* out,
-                               const float* fills_host, int k, int nc, int C,
-                               void* stream) {
+static int plane_build(const float* rows, const int* starts, float* out,
+                       const float* fills_host, int k, int nc, int C, void* stream) {
   if (k < 1 || k > rps::kMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
   rps::Fills fills{};
   for (int i = 0; i < k; ++i) fills.v[i] = fills_host[i];
@@ -48,4 +47,20 @@ extern "C" int rps_plane_build(const float* rows, const int* starts, float* out,
   plane_build_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       rows, starts, out, fills, k, nc, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+struct rps_plane_build_args {
+  const float* rows;
+  const int* starts;
+  float* out;
+  float fills[8];
+  int k, nc, C;
+  void* stream;
+};
+
+extern "C" int rps_plane_build(const void* packed, int size) {
+  rps_plane_build_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return plane_build(r.rows, r.starts, r.out, r.fills, r.k, r.nc, r.C, r.stream);
 }

@@ -233,11 +233,10 @@ __global__ void rebin_pass_x(const float* __restrict__ mid, OutPlanes out,
 // scratch; counts: [rows*gw] i32.  gh is the whole grid's height; the launch
 // owns global rows [row0, row0 + rows).  fills[0] must be >= 0.5 * SENTINEL
 // (a filled slot is dead); the wrapper checks it.
-extern "C" int rps_rebin(const float* const* in_host, float* mid,
-                         float* const* out_host, int* counts,
-                         const float* fills_host, int k, int gh, int gw, int C,
-                         int row0, int rows, int in_off, float x_min, float y_min,
-                         float cell_w, float cell_h, void* stream) {
+static int rebin(const float* const* in_host, float* mid, float* const* out_host,
+                 int* counts, const float* fills_host, int k, int gh, int gw, int C,
+                 int row0, int rows, int in_off, float x_min, float y_min, float cell_w,
+                 float cell_h, void* stream) {
   if (k < 2 || k > rps::kMaxChannels || C < 1 || C > 1024 || rows < 1 || row0 < 0 ||
       row0 + rows > gh || in_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -259,4 +258,23 @@ extern "C" int rps_rebin(const float* const* in_host, float* mid,
   if (err != cudaSuccess) return static_cast<int>(err);
   rebin_pass_x<<<grid, threads, shmem, st>>>(mid, out, counts, fills, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+struct rps_rebin_args {
+  const float* in[8];
+  float* mid;
+  float* out[8];
+  int* counts;
+  float fills[8];
+  int k, gh, gw, C, row0, rows, in_off;
+  float x_min, y_min, cell_w, cell_h;
+  void* stream;
+};
+
+extern "C" int rps_rebin(const void* packed, int size) {
+  rps_rebin_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return rebin(r.in, r.mid, r.out, r.counts, r.fills, r.k, r.gh, r.gw, r.C, r.row0, r.rows,
+               r.in_off, r.x_min, r.y_min, r.cell_w, r.cell_h, r.stream);
 }

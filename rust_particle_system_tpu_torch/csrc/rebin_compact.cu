@@ -86,10 +86,9 @@ __global__ void rebin_compact(InPlanes in, OutPlanes out, int* __restrict__ coun
 // f32 plane (channels 0/1 are x/y); counts: [gh*gw] i32, the candidate totals.
 // fills[0] must be >= 0.5 * SENTINEL (a filled slot is dead); the wrapper
 // checks it.
-extern "C" int rps_rebin_compact(const float* const* in_host, float* const* out_host,
-                                 int* counts, const float* fills_host, int k, int gh,
-                                 int gw, int C, float x_min, float y_min, float cell_w,
-                                 float cell_h, void* stream) {
+static int compact(const float* const* in_host, float* const* out_host, int* counts,
+                   const float* fills_host, int k, int gh, int gw, int C, float x_min,
+                   float y_min, float cell_w, float cell_h, void* stream) {
   if (k < 2 || k > rps::kMaxChannels || C < 1 || C > 1024 || gw < 1 || gh < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   rps::Fills fills{};
@@ -105,4 +104,22 @@ extern "C" int rps_rebin_compact(const float* const* in_host, float* const* out_
   rebin_compact<<<gh * gw, threads, 9 * 32 * sizeof(int),
                   static_cast<cudaStream_t>(stream)>>>(in, out, counts, fills, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+struct rps_rebin_compact_args {
+  const float* in[8];
+  float* out[8];
+  int* counts;
+  float fills[8];
+  int k, gh, gw, C;
+  float x_min, y_min, cell_w, cell_h;
+  void* stream;
+};
+
+extern "C" int rps_rebin_compact(const void* packed, int size) {
+  rps_rebin_compact_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return compact(r.in, r.out, r.counts, r.fills, r.k, r.gh, r.gw, r.C, r.x_min, r.y_min,
+                 r.cell_w, r.cell_h, r.stream);
 }

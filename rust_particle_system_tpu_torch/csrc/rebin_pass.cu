@@ -169,14 +169,11 @@ __global__ void hole_fill_pass(InPlanes in, InPlanes ghost_lo, InPlanes ghost_hi
 // cells before the first and after the last.  out_host: k [nc, C] planes;
 // counts: [nc] i32; adopted: [nc, 2C] u8 (lossless; else NULL).  fills[0]
 // must be >= 0.5 * SENTINEL (a filled slot is dead); the wrapper checks it.
-extern "C" int rps_hole_fill_pass(const float* const* in_host,
-                                  const float* const* ghost_lo_host,
-                                  const float* const* ghost_hi_host,
-                                  float* const* out_host, int* counts,
-                                  unsigned char* adopted, const float* fills_host, int k,
-                                  int nc, int gw, int gh, int C, int shift, int row0,
-                                  int row_only, int lossless, float x_min, float y_min,
-                                  float cell_w, float cell_h, void* stream) {
+static int hole_fill(const float* const* in_host, const float* const* ghost_lo_host,
+                     const float* const* ghost_hi_host, float* const* out_host, int* counts,
+                     unsigned char* adopted, const float* fills_host, int k, int nc, int gw,
+                     int gh, int C, int shift, int row0, int row_only, int lossless,
+                     float x_min, float y_min, float cell_w, float cell_h, void* stream) {
   if (k < 2 || k > rps::kMaxChannels || C < 1 || C > 1024 || gw < 1 || nc < 1 ||
       nc % gw != 0 || shift < 1 || shift > nc || row0 < 0 || row0 + nc / gw > gh ||
       (lossless && adopted == nullptr))
@@ -198,4 +195,27 @@ extern "C" int rps_hole_fill_pass(const float* const* in_host,
   hole_fill_pass<<<nc, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       in, lo, hi, out, counts, adopted, fills, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+// ghost_lo / ghost_hi hold NULLs where no ghost rows are given.
+struct rps_hole_fill_pass_args {
+  const float* in[8];
+  const float* ghost_lo[8];
+  const float* ghost_hi[8];
+  float* out[8];
+  int* counts;
+  unsigned char* adopted;
+  float fills[8];
+  int k, nc, gw, gh, C, shift, row0, row_only, lossless;
+  float x_min, y_min, cell_w, cell_h;
+  void* stream;
+};
+
+extern "C" int rps_hole_fill_pass(const void* packed, int size) {
+  rps_hole_fill_pass_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return hole_fill(r.in, r.ghost_lo, r.ghost_hi, r.out, r.counts, r.adopted, r.fills, r.k,
+                   r.nc, r.gw, r.gh, r.C, r.shift, r.row0, r.row_only, r.lossless, r.x_min,
+                   r.y_min, r.cell_w, r.cell_h, r.stream);
 }

@@ -351,71 +351,114 @@ cudaError_t launch_force(const float* px, const float* py, const float* P1,
 
 }  // namespace
 
+// Each entry takes its arguments as the record struct rps_<entry>_args
+// (common.cuh, rps::unpack).
+
 // Neighbour planes [gh, gw, C] f32, own rows [r0, r0 + R); own-side planes
 // and outputs [R, gw, C].  rho/rhon: outputs (0 at parked walk slots).
-extern "C" int rps_density(const float* px, const float* py, float* rho, float* rhon,
-                           int gh, int r0, int R, int gw, int C, float h, float dnorm,
-                           float nnorm, void* stream) {
-  return static_cast<int>(launch_density<false>(px, py, rho, rhon, gh, r0, R, gw, C, h,
-                                                dnorm, nnorm, stream));
+struct rps_density_args {
+  const float* px;
+  const float* py;
+  float* rho;
+  float* rhon;
+  int gh, r0, R, gw, C;
+  float h, dnorm, nnorm;
+  void* stream;
+};
+
+template <bool kPair>
+static int density_entry(const void* packed, int size) {
+  rps_density_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_density<kPair>(a.px, a.py, a.rho, a.rhon, a.gh, a.r0, a.R,
+                                                a.gw, a.C, a.h, a.dnorm, a.nnorm, a.stream));
+}
+
+extern "C" int rps_density(const void* packed, int size) {
+  return density_entry<false>(packed, size);
 }
 
 // Walk planes px/py (deferred slots parked), P1/NPn/vx/vy; own-only NPo and the
 // true predicted positions npx/npy.  Outputs: the final px, py, vx, vy planes.
-extern "C" int rps_force_integrated(const float* px, const float* py, const float* P1,
-                                    const float* NPn, const float* vx, const float* vy,
-                                    const float* NPo, const float* npx,
-                                    const float* npy, float* out_px, float* out_py,
-                                    float* out_vx, float* out_vy, int gh, int r0, int R,
-                                    int gw, int C, float h, float eps2, float dt,
-                                    float vscale, float x_min, float x_max, float y_min,
-                                    float y_max, float damp, void* stream) {
-  const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
-  return static_cast<int>(launch_force<false, true>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, r0, R,
-      gw, C, k, stream));
+struct rps_force_integrated_args {
+  const float* px;
+  const float* py;
+  const float* P1;
+  const float* NPn;
+  const float* vx;
+  const float* vy;
+  const float* NPo;
+  const float* npx;
+  const float* npy;
+  float* out_px;
+  float* out_py;
+  float* out_vx;
+  float* out_vy;
+  int gh, r0, R, gw, C;
+  float h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp;
+  void* stream;
+};
+
+template <bool kPair>
+static int force_integrated_entry(const void* packed, int size) {
+  rps_force_integrated_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  const ForceScalars k{a.h, a.eps2, a.dt, a.vscale, a.x_min, a.x_max, a.y_min, a.y_max, a.damp};
+  return static_cast<int>(launch_force<kPair, true>(
+      a.px, a.py, a.P1, a.NPn, a.vx, a.vy, a.NPo, a.npx, a.npy, a.out_px, a.out_py, a.out_vx,
+      a.out_vy, a.gh, a.r0, a.R, a.gw, a.C, k, a.stream));
+}
+
+extern "C" int rps_force_integrated(const void* packed, int size) {
+  return force_integrated_entry<false>(packed, size);
 }
 
 // K3b: the same inputs without npx/npy.  Outputs: the raw fx, fy, fvx, fvy.
-extern "C" int rps_force(const float* px, const float* py, const float* P1,
-                         const float* NPn, const float* vx, const float* vy,
-                         const float* NPo, float* fx, float* fy, float* fvx, float* fvy,
-                         int gh, int r0, int R, int gw, int C, float h, float eps2,
-                         void* stream) {
-  const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return static_cast<int>(launch_force<false, false>(
-      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, r0, R, gw, C,
-      k, stream));
+struct rps_force_args {
+  const float* px;
+  const float* py;
+  const float* P1;
+  const float* NPn;
+  const float* vx;
+  const float* vy;
+  const float* NPo;
+  float* fx;
+  float* fy;
+  float* fvx;
+  float* fvy;
+  int gh, r0, R, gw, C;
+  float h, eps2;
+  void* stream;
+};
+
+template <bool kPair>
+static int force_entry(const void* packed, int size) {
+  rps_force_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  const ForceScalars k{a.h, a.eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return static_cast<int>(launch_force<kPair, false>(
+      a.px, a.py, a.P1, a.NPn, a.vx, a.vy, a.NPo, nullptr, nullptr, a.fx, a.fy, a.fvx, a.fvy,
+      a.gh, a.r0, a.R, a.gw, a.C, k, a.stream));
+}
+
+extern "C" int rps_force(const void* packed, int size) {
+  return force_entry<false>(packed, size);
 }
 
 // K6: rps_density, rps_force_integrated and rps_force in the pair block shape
-// (same arguments, same outputs).
-extern "C" int rps_pair_density(const float* px, const float* py, float* rho,
-                                float* rhon, int gh, int r0, int R, int gw, int C,
-                                float h, float dnorm, float nnorm, void* stream) {
-  return static_cast<int>(launch_density<true>(px, py, rho, rhon, gh, r0, R, gw, C, h,
-                                               dnorm, nnorm, stream));
+// (the same records, the same outputs).
+using rps_pair_density_args = rps_density_args;
+using rps_pair_force_integrated_args = rps_force_integrated_args;
+using rps_pair_force_args = rps_force_args;
+
+extern "C" int rps_pair_density(const void* packed, int size) {
+  return density_entry<true>(packed, size);
 }
 
-extern "C" int rps_pair_force_integrated(
-    const float* px, const float* py, const float* P1, const float* NPn,
-    const float* vx, const float* vy, const float* NPo, const float* npx,
-    const float* npy, float* out_px, float* out_py, float* out_vx, float* out_vy,
-    int gh, int r0, int R, int gw, int C, float h, float eps2, float dt, float vscale,
-    float x_min, float x_max, float y_min, float y_max, float damp, void* stream) {
-  const ForceScalars k{h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp};
-  return static_cast<int>(launch_force<true, true>(
-      px, py, P1, NPn, vx, vy, NPo, npx, npy, out_px, out_py, out_vx, out_vy, gh, r0, R,
-      gw, C, k, stream));
+extern "C" int rps_pair_force_integrated(const void* packed, int size) {
+  return force_integrated_entry<true>(packed, size);
 }
 
-extern "C" int rps_pair_force(const float* px, const float* py, const float* P1,
-                              const float* NPn, const float* vx, const float* vy,
-                              const float* NPo, float* fx, float* fy, float* fvx,
-                              float* fvy, int gh, int r0, int R, int gw, int C,
-                              float h, float eps2, void* stream) {
-  const ForceScalars k{h, eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return static_cast<int>(launch_force<true, false>(
-      px, py, P1, NPn, vx, vy, NPo, nullptr, nullptr, fx, fy, fvx, fvy, gh, r0, R, gw,
-      C, k, stream));
+extern "C" int rps_pair_force(const void* packed, int size) {
+  return force_entry<true>(packed, size);
 }

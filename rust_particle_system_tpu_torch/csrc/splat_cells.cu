@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kStride = 8;   // render-cell extent in pixels
@@ -122,10 +124,9 @@ __global__ void splat_cells_kernel(const float* __restrict__ px, const float* __
 // perm: [n] int32 sorted row -> particle; starts: [gh * gw + 1] int32 run
 // starts of the sorted render-cell keys.  rgb: [H, W, 3] and alpha: [H, W],
 // every pixel written.  Requires 8 gw >= W, 8 gh >= H and cap >= 1.
-extern "C" int rps_splat_cells(const float* px, const float* py, const float* color,
-                               const int* perm, const int* starts, float* rgb, float* alpha,
-                               int ld, int gw, int gh, int cap, int H, int W, float edge0,
-                               float width, void* stream) {
+static int splat_cells(const float* px, const float* py, const float* color, const int* perm,
+                       const int* starts, float* rgb, float* alpha, int ld, int gw, int gh,
+                       int cap, int H, int W, float edge0, float width, void* stream) {
   if (cap < 1 || ld < 3 || H < 1 || W < 1 || gw * kStride < W || gh * kStride < H)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t shmem = static_cast<size_t>(5) * 4 * cap * sizeof(float);
@@ -143,4 +144,25 @@ extern "C" int rps_splat_cells(const float* px, const float* py, const float* co
   splat_cells_kernel<<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       px, py, color, perm, starts, rgb, alpha, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+struct rps_splat_cells_args {
+  const float* px;
+  const float* py;
+  const float* color;
+  const int* perm;
+  const int* starts;
+  float* rgb;
+  float* alpha;
+  int ld, gw, gh, cap, H, W;
+  float edge0, width;
+  void* stream;
+};
+
+extern "C" int rps_splat_cells(const void* packed, int size) {
+  rps_splat_cells_args r;
+  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
+  return splat_cells(r.px, r.py, r.color, r.perm, r.starts, r.rgb, r.alpha, r.ld, r.gw, r.gh,
+                     r.cap, r.H, r.W, r.edge0, r.width, r.stream);
 }

@@ -189,11 +189,10 @@ cudaError_t launch(const float* ppx, const float* ppy, const float* r, const flo
 // ppx/ppy: pixel-space positions [gh, gw, C] (dead slots at FAR); r, g and,
 // for nch == 4, b: colour planes.  out: [nch, H, W], every pixel written.
 // Requires sx, sy >= 2m, m >= 0, gh*sy >= H and 1 <= C.
-extern "C" int rps_splat_planes(const float* ppx, const float* ppy, const float* r,
-                                const float* g, const float* b, float* out, int gh,
-                                int gw, int C, int H, int W, int sx, int sy, int m,
-                                int nch, int clamp_drift, float radius, float edge0,
-                                float inv_w, void* stream) {
+static int splat_planes(const float* ppx, const float* ppy, const float* r, const float* g,
+                        const float* b, float* out, int gh, int gw, int C, int H, int W,
+                        int sx, int sy, int m, int nch, int clamp_drift, float radius,
+                        float edge0, float inv_w, void* stream) {
   if (C < 1 || m < 0 || sx < 2 * m || sy < 2 * m || sx < 1 || sy < 1 ||
       gh * sy < H || H < 1 || W < 1 || (nch != 3 && nch != 4))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -206,4 +205,24 @@ extern "C" int rps_splat_planes(const float* ppx, const float* ppy, const float*
   const cudaError_t err = nch == 3 ? launch<3>(ppx, ppy, r, g, b, out, k, s)
                                    : launch<4>(ppx, ppy, r, g, b, out, k, s);
   return static_cast<int>(err);
+}
+
+// (Its arguments: the record struct below, common.cuh's rps::unpack.)
+struct rps_splat_planes_args {
+  const float* ppx;
+  const float* ppy;
+  const float* r;
+  const float* g;
+  const float* b;
+  float* out;
+  int gh, gw, C, H, W, sx, sy, m, nch, clamp_drift;
+  float radius, edge0, inv_w;
+  void* stream;
+};
+
+extern "C" int rps_splat_planes(const void* packed, int size) {
+  rps_splat_planes_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  return splat_planes(a.ppx, a.ppy, a.r, a.g, a.b, a.out, a.gh, a.gw, a.C, a.H, a.W, a.sx,
+                      a.sy, a.m, a.nch, a.clamp_drift, a.radius, a.edge0, a.inv_w, a.stream);
 }

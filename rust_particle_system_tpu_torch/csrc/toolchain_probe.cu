@@ -2,8 +2,8 @@
 // property of this toolchain and card that the port relies on, as the TPU
 // probes of tools/tpu_smoke.py and protos/bf16_repro.py pinned Mosaic's.
 //
-// K13a rps_probe_dot_f32   C = A B on the CUDA cores in float32, one thread
-//      per output, k in order, one fmaf each.  Replaces the in-kernel dot at
+// K13a rps_probe_dot_f32   C = A B on the CUDA cores in float32, k in order,
+//      one fmaf per step for each output.  Replaces the in-kernel dot at
 //      Precision.HIGHEST of tools/tpu_smoke.py:71 (smoke_dot_precision_trap)
 //      and :104 (smoke_onehot_passthrough_precision): full float32, and a
 //      one-hot product passes values through bit for bit.
@@ -23,24 +23,117 @@
 //      the product rounded to bfloat16, written as float32: the cast-then-
 //      new-axis outer product of protos/bf16_repro.py:65 (main_round4).
 //
-// Bound: each moves at most a few hundred KB and does at most 128^3
-// multiply-adds; launch latency sets their time.
+// Bound: each moves at most a few hundred KB and does at most 2 x 128^3
+// operations (0.00006 ms at the FP32 peak); none comes near its bound, and a
+// call's time is the host's launch path (ops/cuda/_lib.py) plus the
+// launch latency and the dependent memory round trips inside the kernel.
+// K13a's design cuts those round trips: the old one-thread-per-output loop
+// read A and B from device memory 128 times each, with 128 dependent loads
+// per thread.  Now a block computes a 16 x 32 tile of C from 64-deep chunks
+// of A and B staged in shared memory by cp.async, double-buffered (2 chunks
+// in flight at 128^3), and each of its 128 threads keeps 4 outputs of one
+// row in registers.  The sums still run over k in order with one fmaf per
+// step from 0, so K13a stays bit-equal to the one-thread loop and to
+// dot_f32_plain, and the one-hot product stays bit-exact.  It stays FP32 on
+// the CUDA cores: TF32 is the trap K13b pins.  K13c moves 8 KB: it reads and
+// writes 16 bytes a thread where both pointers allow (a scalar tail covers
+// n % 4), a quarter of the memory instructions of one float a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-__global__ void dot_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                               float* __restrict__ c, int M, int N, int K) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * N) return;
-  const int i = idx / N, j = idx % N;
-  float acc = 0.0f;
-  for (int k = 0; k < K; ++k) acc = fmaf(a[i * K + k], b[k * N + j], acc);
-  c[idx] = acc;
+// K13a's tile: kBM x kBN outputs a block, kTN a thread (one row), chunks of
+// kBK along k.  A's rows are padded by 4 floats, so the 4 rows a warp reads
+// at one k lie in 4 different banks.
+constexpr int kBM = 16, kBN = 32, kBK = 64, kTN = 4;
+constexpr int kDotThreads = kBM * kBN / kTN;  // 128
+constexpr int kAStride = kBK + 4;
+
+// One float from device to shared memory by cp.async; `valid` false fills 0
+// and reads nothing (the source is then any valid address).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__global__ void __launch_bounds__(kDotThreads)
+    dot_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ c, int M, int N, int K) {
+  __shared__ float as[2][kBM * kAStride];
+  __shared__ __align__(16) float bs[2][kBK * kBN];
+  const int t = threadIdx.x;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int row = t / (kBN / kTN), col = (t % (kBN / kTN)) * kTN;
+
+  // Chunk k0 .. k0 + kBK - 1 of A's and B's tiles into buffer `buf`, zeros
+  // outside the matrices; neighbouring threads take neighbouring columns.
+  auto stage = [&](int buf, int k0) {
+#pragma unroll
+    for (int i = 0; i < kBM * kBK / kDotThreads; ++i) {
+      const int e = t + i * kDotThreads, r = e / kBK, k = e % kBK;
+      const bool ok = m0 + r < M && k0 + k < K;
+      cp_async_f32(&as[buf][r * kAStride + k],
+                   ok ? a + static_cast<long long>(m0 + r) * K + k0 + k : a, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kBK * kBN / kDotThreads; ++i) {
+      const int e = t + i * kDotThreads, k = e / kBN, n = e % kBN;
+      const bool ok = k0 + k < K && n0 + n < N;
+      cp_async_f32(&bs[buf][k * kBN + n],
+                   ok ? b + static_cast<long long>(k0 + k) * N + n0 + n : b, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kTN] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // k in order, one fmaf a step from 0: the one-thread-per-output sum.
+  auto step = [&](int buf, int k) {
+    const float x = as[buf][row * kAStride + k];
+    const float4 y = *reinterpret_cast<const float4*>(&bs[buf][k * kBN + col]);
+    acc[0] = fmaf(x, y.x, acc[0]);
+    acc[1] = fmaf(x, y.y, acc[1]);
+    acc[2] = fmaf(x, y.z, acc[2]);
+    acc[3] = fmaf(x, y.w, acc[3]);
+  };
+  const int chunks = (K + kBK - 1) / kBK;
+  stage(0, 0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    if (ch + 1 < chunks) {  // the next chunk flies while this one is summed
+      stage(buf ^ 1, (ch + 1) * kBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kn = min(kBK, K - ch * kBK);
+    if (kn == kBK) {
+#pragma unroll 16
+      for (int k = 0; k < kBK; ++k) step(buf, k);
+    } else {
+      for (int k = 0; k < kn; ++k) step(buf, k);
+    }
+    __syncthreads();  // the buffer is restaged two chunks on
+  }
+  const int m = m0 + row;
+  if (m >= M) return;
+#pragma unroll
+  for (int j = 0; j < kTN; ++j)
+    if (n0 + col + j < N) c[static_cast<long long>(m) * N + n0 + col + j] = acc[j];
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -79,10 +172,27 @@ __global__ void dot_tf32_kernel(const float* __restrict__ a, const float* __rest
   c[(r0 + g + 8) * N + n0 + 2 * q + 1] = d3;
 }
 
+// o = x * scale: thread i takes floats 4i .. 4i + 3 in one 16-byte load and
+// store (kVec, both pointers 16-byte aligned), the first n % 4 threads the
+// tail; else one float a thread.  A plain multiply, no -ftz: subnormals stay.
+template <bool kVec>
 __global__ void copy_kernel(const float* __restrict__ x, float* __restrict__ o, int n,
                             float scale) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = x[i] * scale;
+  if (!kVec) {
+    if (i < n) o[i] = x[i] * scale;
+    return;
+  }
+  const int n4 = n >> 2;
+  if (i < n4) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+    v.x *= scale;
+    v.y *= scale;
+    v.z *= scale;
+    v.w *= scale;
+    reinterpret_cast<float4*>(o)[i] = v;
+  }
+  if (i < (n & 3)) o[4 * n4 + i] = x[4 * n4 + i] * scale;
 }
 
 // The broadcast tile's flat element f is row 0's element f % W, whatever
@@ -108,48 +218,104 @@ __global__ void bf16_outer_kernel(const float* __restrict__ a, const float* __re
 
 }  // namespace
 
+// Each entry takes its arguments as the record struct rps_<entry>_args
+// (common.cuh, rps::unpack).
+
 // a: [M, K], b: [K, N], c: [M, N], all float32 row-major.
-extern "C" int rps_probe_dot_f32(const float* a, const float* b, float* c, int M, int N,
-                                 int K, void* stream) {
-  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  dot_f32_kernel<<<(M * N + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, M, N, K);
+struct rps_probe_dot_f32_args {
+  const float* a;
+  const float* b;
+  float* c;
+  int M, N, K;
+  void* stream;
+};
+
+extern "C" int rps_probe_dot_f32(const void* packed, int size) {
+  rps_probe_dot_f32_args r;
+  if (!rps::unpack(packed, size, &r) || r.M < 1 || r.N < 1 || r.K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((r.N + kBN - 1) / kBN, (r.M + kBM - 1) / kBM);
+  dot_f32_kernel<<<grid, kDotThreads, 0, static_cast<cudaStream_t>(r.stream)>>>(
+      r.a, r.b, r.c, r.M, r.N, r.K);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As rps_probe_dot_f32 with M % 16 == 0, N % 8 == 0, K % 8 == 0.
-extern "C" int rps_probe_dot_tf32(const float* a, const float* b, float* c, int M, int N,
-                                  int K, void* stream) {
-  if (M < 16 || N < 8 || K < 8 || M % 16 || N % 8 || K % 8)
+struct rps_probe_dot_tf32_args {
+  const float* a;
+  const float* b;
+  float* c;
+  int M, N, K;
+  void* stream;
+};
+
+extern "C" int rps_probe_dot_tf32(const void* packed, int size) {
+  rps_probe_dot_tf32_args r;
+  if (!rps::unpack(packed, size, &r) || r.M < 16 || r.N < 8 || r.K < 8 || r.M % 16 ||
+      r.N % 8 || r.K % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  dot_tf32_kernel<<<dim3(N / 8, M / 16), 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, N, K);
+  dot_tf32_kernel<<<dim3(r.N / 8, r.M / 16), 32, 0, static_cast<cudaStream_t>(r.stream)>>>(
+      r.a, r.b, r.c, r.N, r.K);
   return static_cast<int>(cudaGetLastError());
 }
 
 // o[i] = x[i] * scale for i < n.
-extern "C" int rps_probe_copy(const float* x, float* o, int n, float scale, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  copy_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, o, n, scale);
+struct rps_probe_copy_args {
+  const float* x;
+  float* o;
+  int n;
+  float scale;
+  void* stream;
+};
+
+extern "C" int rps_probe_copy(const void* packed, int size) {
+  rps_probe_copy_args r;
+  if (!rps::unpack(packed, size, &r) || r.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(r.stream);
+  const uintptr_t either = reinterpret_cast<uintptr_t>(r.x) | reinterpret_cast<uintptr_t>(r.o);
+  if (either % 16 == 0) {
+    const int threads = r.n / 4 > 0 ? r.n / 4 : 1;
+    copy_kernel<true><<<(threads + 255) / 256, 256, 0, st>>>(r.x, r.o, r.n, r.scale);
+  } else {
+    copy_kernel<false><<<(r.n + 255) / 256, 256, 0, st>>>(r.x, r.o, r.n, r.scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x: [rows, W] bfloat16; o: rows * W float32 values (row 0 broadcast).
-extern "C" int rps_probe_bf16(const void* x, float* o, int rows, int W, void* stream) {
-  if (rows < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = rows * W;
-  bf16_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), o, n, W);
+struct rps_probe_bf16_args {
+  const void* x;
+  float* o;
+  int rows, W;
+  void* stream;
+};
+
+extern "C" int rps_probe_bf16(const void* packed, int size) {
+  rps_probe_bf16_args r;
+  if (!rps::unpack(packed, size, &r) || r.rows < 1 || r.W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = r.rows * r.W;
+  bf16_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(r.stream)>>>(
+      static_cast<const __nv_bfloat16*>(r.x), r.o, n, r.W);
   return static_cast<int>(cudaGetLastError());
 }
 
 // a: [rows, Wa] float32 (columns 0..A-1 used), b: [rows, B] float32,
 // o: [rows, A, B] float32.
-extern "C" int rps_probe_bf16_outer(const float* a, const float* b, float* o, int rows, int Wa,
-                                    int A, int B, void* stream) {
-  if (rows < 1 || A < 1 || B < 1 || A > Wa) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = rows * A * B;
-  bf16_outer_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, o, n, Wa, A, B);
+struct rps_probe_bf16_outer_args {
+  const float* a;
+  const float* b;
+  float* o;
+  int rows, Wa, A, B;
+  void* stream;
+};
+
+extern "C" int rps_probe_bf16_outer(const void* packed, int size) {
+  rps_probe_bf16_outer_args r;
+  if (!rps::unpack(packed, size, &r) || r.rows < 1 || r.A < 1 || r.B < 1 || r.A > r.Wa)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = r.rows * r.A * r.B;
+  bf16_outer_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(r.stream)>>>(
+      r.a, r.b, r.o, n, r.Wa, r.A, r.B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,6 @@ tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..grid import GridSpec
@@ -116,8 +114,8 @@ def evaluate_plain(px, py, L, spec: GridSpec, h: float, n_pairs: int, deg: int =
     return tuple(outs)
 
 
-def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+_moments = _lib.kernel("rps_fm_moments")
+_eval = _lib.kernel("rps_fm_eval")
 
 
 def moments(px, py, weights, spec: GridSpec, h: float, deg: int = 12):
@@ -135,11 +133,10 @@ def moments(px, py, weights, spec: GridSpec, h: float, deg: int = 12):
     gh, gw, C = px.shape
     if C > 256:
         raise ValueError(f"K14a stages at most 256 slots a cell, got {C}")
-    m = torch.empty((gh, gw, len(weights), BPAD * BPAD), dtype=torch.float32,
+    m = torch.empty(gh, gw, len(weights), BPAD * BPAD, dtype=torch.float32,
                     device=px.device)
-    _lib.check("rps_fm_moments", _lib.library().rps_fm_moments(
-        px.data_ptr(), py.data_ptr(), _ptrs(weights), m.data_ptr(), len(weights), gh * gw,
-        gw, C, nb, spec.x_min, spec.y_min, h, _lib.stream()))
+    _moments(px.data_ptr(), py.data_ptr(), *_lib.pad8([w.data_ptr() for w in weights]),
+             m.data_ptr(), len(weights), gh * gw, gw, C, nb, spec.x_min, spec.y_min, h)
     moments.launches += 1
     return m
 
@@ -166,10 +163,9 @@ def evaluate(px, py, L, spec: GridSpec, h: float, n_pairs: int, deg: int = 12):
     gh, gw, C = px.shape
     if C > 1024:
         raise ValueError(f"K14c takes at most 1024 slots a cell, got {C}")
-    outs = [torch.empty_like(px) for _ in range(n_pairs)]
-    _lib.check("rps_fm_eval", _lib.library().rps_fm_eval(
-        px.data_ptr(), py.data_ptr(), L.data_ptr(), _ptrs(outs), n_pairs, gh * gw, gw, C,
-        nb, spec.x_min, spec.y_min, h, _lib.stream()))
+    outs = _lib.empty_f32(n_pairs, px.shape, px)
+    _eval(px.data_ptr(), py.data_ptr(), L.data_ptr(), *_lib.pad8([o.data_ptr() for o in outs]),
+          n_pairs, gh * gw, gw, C, nb, spec.x_min, spec.y_min, h)
     evaluate.launches += 1
     return tuple(outs)
 

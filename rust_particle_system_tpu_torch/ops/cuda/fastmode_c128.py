@@ -70,15 +70,19 @@ def c_vpu_plain(w, l):
     return (basis(w, B2P) * l[:, :, None]).sum(1)
 
 
+_a_dot = _lib.kernel("rps_c128_a_dot")
+_a_vpu = _lib.kernel("rps_c128_a_vpu")
+_c_vpu = _lib.kernel("rps_c128_c_vpu")
+
+
 def a_dot(w):
     """Kernel K14d: ``a_dot_plain`` on the card, one block per cell."""
     _check_w(w)
     if _lib.dispatch(w) == "plain":
         return a_dot_plain(w)
     _lib.require_cuda_planes(w)
-    out = torch.empty((w.shape[0], B1, B1), dtype=torch.float32, device=w.device)
-    _lib.check("rps_c128_a_dot", _lib.library().rps_c128_a_dot(
-        w.data_ptr(), out.data_ptr(), w.shape[0], _lib.stream()))
+    out = torch.empty(w.shape[0], B1, B1, dtype=torch.float32, device=w.device)
+    _a_dot(w.data_ptr(), out.data_ptr(), w.shape[0])
     a_dot.launches += 1
     return out
 
@@ -92,9 +96,8 @@ def a_vpu(w):
     if _lib.dispatch(w) == "plain":
         return a_vpu_plain(w)
     _lib.require_cuda_planes(w)
-    out = torch.empty((w.shape[0], B2P), dtype=torch.float32, device=w.device)
-    _lib.check("rps_c128_a_vpu", _lib.library().rps_c128_a_vpu(
-        w.data_ptr(), out.data_ptr(), w.shape[0], _lib.stream()))
+    out = torch.empty(w.shape[0], B2P, dtype=torch.float32, device=w.device)
+    _a_vpu(w.data_ptr(), out.data_ptr(), w.shape[0])
     a_vpu.launches += 1
     return out
 
@@ -108,13 +111,9 @@ def c_vpu(w, l):
     _check_l(w, l)
     if _lib.dispatch(w) == "plain":
         return c_vpu_plain(w, l)
-    _lib.require_cuda_planes(w)
-    _lib.require_cuda_planes(l)
-    if l.device != w.device:
-        raise ValueError(f"expected the moments on {w.device}, got {l.device}")
+    _lib.require_cuda(w, l)
     out = torch.empty_like(w)
-    _lib.check("rps_c128_c_vpu", _lib.library().rps_c128_c_vpu(
-        w.data_ptr(), l.data_ptr(), out.data_ptr(), w.shape[0], _lib.stream()))
+    _c_vpu(w.data_ptr(), l.data_ptr(), out.data_ptr(), w.shape[0])
     c_vpu.launches += 1
     return out
 

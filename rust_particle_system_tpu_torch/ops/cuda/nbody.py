@@ -49,6 +49,9 @@ def nbody_accel_plain(pos, params):
     return out
 
 
+_nbody = _lib.kernel("rps_nbody_accel")
+
+
 def nbody_accel(pos, params):
     """``[n, 2]`` positions -> ``[n, 2]`` accelerations.  Launches K8 for CUDA
     tensors; runs the plain version for CPU tensors."""
@@ -59,11 +62,9 @@ def nbody_accel(pos, params):
     if pos.dim() != 2 or pos.shape[1] != 2 or n < 1 or pos.data_ptr() % 8:
         raise ValueError("expected 8-byte aligned [n, 2] positions, n >= 1")
     acc = torch.empty_like(pos)
-    lib = _lib.library()
-    _lib.check("rps_nbody_accel", lib.rps_nbody_accel(
-        pos.data_ptr(), acc.data_ptr(), n, params.g_const,
-        f32_mul(params.repulsion, params.softening),
-        f32_mul(params.softening, params.softening), _lib.stream()))
+    _nbody(pos.data_ptr(), acc.data_ptr(), n, params.g_const,
+           f32_mul(params.repulsion, params.softening),
+           f32_mul(params.softening, params.softening))
     nbody_accel.launches += 1
     return acc
 

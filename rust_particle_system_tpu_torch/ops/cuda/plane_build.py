@@ -12,8 +12,6 @@ output word gathers its source directly, coalesced on both sides.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _lib
@@ -34,6 +32,9 @@ def cell_planes_aos_plain(sorted_packed: torch.Tensor, starts: torch.Tensor,
     return torch.where(valid[..., None], sorted_packed[rows], fill)
 
 
+_plane_build = _lib.kernel("rps_plane_build")
+
+
 def cell_planes_aos(sorted_packed: torch.Tensor, starts: torch.Tensor,
                     num_cells: int, capacity: int, fills) -> torch.Tensor:
     """``[n, k]`` cell-sorted rows + ``[num_cells + 1]`` run starts ->
@@ -49,13 +50,10 @@ def cell_planes_aos(sorted_packed: torch.Tensor, starts: torch.Tensor,
         raise ValueError("starts must be [num_cells + 1] on the rows' device")
     if len(fills) != k:
         raise ValueError("one fill per channel")
-    out = torch.empty((num_cells, capacity, k), dtype=torch.float32,
+    out = torch.empty(num_cells, capacity, k, dtype=torch.float32,
                       device=sorted_packed.device)
-    fills_host = (ctypes.c_float * k)(*[float(f) for f in fills])
-    lib = _lib.library()
-    _lib.check("rps_plane_build", lib.rps_plane_build(
-        sorted_packed.data_ptr(), starts.data_ptr(), out.data_ptr(), fills_host,
-        k, num_cells, capacity, _lib.stream()))
+    _plane_build(sorted_packed.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                 *_lib.pad8([float(f) for f in fills]), k, num_cells, capacity)
     cell_planes_aos.launches += 1
     return out
 

@@ -37,8 +37,6 @@ K9 and K12 rank the same way, one block per destination cell.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..grid import GridSpec, cell_index
@@ -339,8 +337,13 @@ def rebin_compact_plain(planes, spec: GridSpec, fills):
     return outs, keep.sum(-1, dtype=torch.int32)
 
 
-def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+_rebin_kernel = _lib.kernel("rps_rebin")
+_hole_fill_kernel = _lib.kernel("rps_hole_fill_pass")
+_compact_kernel = _lib.kernel("rps_rebin_compact")
+
+
+def _ptrs(tensors) -> tuple:
+    return _lib.pad8([t.data_ptr() for t in tensors])
 
 
 def _rebin_launch(inputs, spec: GridSpec, fills: tuple, row0: int, rows: int,
@@ -353,14 +356,12 @@ def _rebin_launch(inputs, spec: GridSpec, fills: tuple, row0: int, rows: int,
     _lib.require_cuda_planes(*inputs)
     gw, C = spec.gw, spec.capacity
     dev = inputs[0].device
-    mid = torch.empty((k, rows, gw, C), dtype=torch.float32, device=dev)
-    out = [torch.empty((rows, gw, C), dtype=torch.float32, device=dev)
-           for _ in range(k)]
+    mid = torch.empty(k, rows, gw, C, dtype=torch.float32, device=dev)
+    out = _lib.empty_f32(k, (rows, gw, C), inputs[0])
     counts = torch.empty(rows * gw, dtype=torch.int32, device=dev)
-    _lib.check("rps_rebin", _lib.library().rps_rebin(
-        _ptrs(inputs), mid.data_ptr(), _ptrs(out), counts.data_ptr(),
-        (ctypes.c_float * k)(*fills), k, spec.gh, gw, C, row0, rows, in_off,
-        spec.x_min, spec.y_min, spec.cell_width, spec.cell_size, _lib.stream()))
+    _rebin_kernel(*_ptrs(inputs), mid.data_ptr(), *_ptrs(out), counts.data_ptr(),
+                  *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, in_off, spec.x_min,
+                  spec.y_min, spec.cell_width, spec.cell_size)
     return out, counts
 
 
@@ -400,16 +401,14 @@ def hole_fill_pass(flats, spec: GridSpec, fills, shift: int, row_only: bool,
         hi = [g[1].reshape(shift, C).contiguous() for g in ghosts]
         _lib.require_cuda_planes(flats[0][:shift], *lo, *hi)
     dev = flats[0].device
-    out = [torch.empty((nc, C), dtype=torch.float32, device=dev) for _ in range(k)]
+    out = _lib.empty_f32(k, (nc, C), flats[0])
     counts = torch.empty(nc, dtype=torch.int32, device=dev)
-    adopted = (torch.empty((nc, 2 * C), dtype=torch.uint8, device=dev) if lossless
+    adopted = (torch.empty(nc, 2 * C, dtype=torch.uint8, device=dev) if lossless
                else None)
-    _lib.check("rps_hole_fill_pass", _lib.library().rps_hole_fill_pass(
-        _ptrs(flats), None if lo is None else _ptrs(lo), None if hi is None else _ptrs(hi),
-        _ptrs(out), counts.data_ptr(), None if adopted is None else adopted.data_ptr(),
-        (ctypes.c_float * k)(*fills), k, nc, spec.gw, spec.gh, C, shift, row0,
-        int(row_only), int(lossless), spec.x_min, spec.y_min, spec.cell_width,
-        spec.cell_size, _lib.stream()))
+    _hole_fill_kernel(*_ptrs(flats), *_ptrs(lo or ()), *_ptrs(hi or ()), *_ptrs(out),
+                      counts.data_ptr(), 0 if adopted is None else adopted.data_ptr(),
+                      *_lib.pad8(fills), k, nc, spec.gw, spec.gh, C, shift, row0, int(row_only),
+                      int(lossless), spec.x_min, spec.y_min, spec.cell_width, spec.cell_size)
     hole_fill_pass.launches += 1
     return out, counts, None if adopted is None else adopted.view(torch.bool)
 
@@ -431,12 +430,11 @@ def rebin_compact(planes, spec: GridSpec, fills=None):
     if not 2 <= k <= 8:
         raise ValueError("the rebin kernels take 2..8 channels")
     _lib.require_cuda_planes(*planes)
-    out = [torch.empty_like(planes[0]) for _ in range(k)]
+    out = _lib.empty_f32(k, planes[0].shape, planes[0])
     counts = torch.empty(spec.num_cells, dtype=torch.int32, device=planes[0].device)
-    _lib.check("rps_rebin_compact", _lib.library().rps_rebin_compact(
-        _ptrs(planes), _ptrs(out), counts.data_ptr(), (ctypes.c_float * k)(*fills), k,
-        spec.gh, spec.gw, spec.capacity, spec.x_min, spec.y_min, spec.cell_width,
-        spec.cell_size, _lib.stream()))
+    _compact_kernel(*_ptrs(planes), *_ptrs(out), counts.data_ptr(), *_lib.pad8(fills), k,
+                    spec.gh, spec.gw, spec.capacity, spec.x_min, spec.y_min, spec.cell_width,
+                    spec.cell_size)
     rebin_compact.launches += 1
     return out, counts
 

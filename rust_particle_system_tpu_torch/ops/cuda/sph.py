@@ -141,35 +141,37 @@ def density_planes_plain(px, py, h: float, dnorm: float, nnorm: float,
 def _check_shapes(nbr, own, ghost: bool) -> None:
     """Neighbour-side planes of one shape ``[gh, gw, C]`` (gh >= 3 with ghost
     rows); own-side planes ``[R, gw, C]`` for the R own rows."""
-    gh, gw, C = nbr[0].shape
+    shape = nbr[0].shape
+    gh, gw, C = shape
     r0, r1 = _own_rows(gh, ghost)
-    if r1 <= r0 or any(t.shape != nbr[0].shape for t in nbr):
+    if r1 <= r0 or any(t.shape != shape for t in nbr):
         raise ValueError(f"neighbour planes {[tuple(t.shape) for t in nbr]} "
                          f"(ghost rows: {ghost})")
-    if any(t.shape != (r1 - r0, gw, C) for t in own):
+    own_shape = (r1 - r0, gw, C)
+    if any(t.shape != own_shape for t in own):
         raise ValueError(f"own-side planes {[tuple(t.shape) for t in own]} do not fit "
                          f"neighbour planes {tuple(nbr[0].shape)} (ghost rows: {ghost})")
 
 
-def _launch(entry: str, nbr, own, n_out: int, ghost: bool, *scalars):
+_density = _lib.kernel("rps_density")
+_force_integrated = _lib.kernel("rps_force_integrated")
+_force = _lib.kernel("rps_force")
+_pair_density = _lib.kernel("rps_pair_density")
+_pair_force_integrated = _lib.kernel("rps_pair_force_integrated")
+_pair_force = _lib.kernel("rps_pair_force")
+
+
+def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars):
     """Launch a walk kernel: neighbour-side planes ``nbr`` ``[gh, gw, C]``
-    (with a ghost row on each side if ``ghost``), own-side planes ``own`` and
-    ``n_out`` new output planes ``[R, gw, C]``, then the grid shape and
-    ``scalars`` by value."""
-    _lib.require_cuda_planes(*nbr)
-    if own:
-        _lib.require_cuda_planes(*own)
-        if own[0].device != nbr[0].device:
-            raise ValueError(f"own-side planes on {own[0].device}, neighbour planes on "
-                             f"{nbr[0].device}")
+    (with a ghost row on each side if ``ghost``), own-side planes ``own`` (their
+    shapes checked by :func:`_check_shapes`) and ``n_out`` new output planes
+    ``[R, gw, C]``, then the grid shape and ``scalars`` by value."""
+    _lib.require_cuda(*nbr, *own)
     gh, gw, C = nbr[0].shape
     r0, r1 = _own_rows(gh, ghost)
-    outs = tuple(torch.empty((r1 - r0, gw, C), dtype=torch.float32, device=nbr[0].device)
-                 for _ in range(n_out))
-    fn = getattr(_lib.library(), entry)
-    _lib.check(entry, fn(*[t.data_ptr() for t in (*nbr, *own, *outs)],
-                         gh, r0, r1 - r0, gw, C, *scalars, _lib.stream()))
-    return outs
+    outs = _lib.empty_f32(n_out, (r1 - r0, gw, C), own[0] if own else nbr[0])
+    launch(*[t.data_ptr() for t in (*nbr, *own, *outs)], gh, r0, r1 - r0, gw, C, *scalars)
+    return tuple(outs)
 
 
 def density_scalars(params: SimParams) -> tuple:
@@ -186,7 +188,7 @@ def density_planes(px, py, params: SimParams, ghost: bool = False):
     _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
         return density_planes_plain(px, py, *scal, ghost=ghost)
-    out = _launch("rps_density", (px, py), (), 2, ghost, *scal)
+    out = _launch(_density, (px, py), (), 2, ghost, *scal)
     density_planes.launches += 1
     return out
 
@@ -201,7 +203,7 @@ def density_pairs(px, py, params: SimParams, ghost: bool = False):
     _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
         return density_planes_plain(px, py, *scal, pair=True, ghost=ghost)
-    out = _launch("rps_pair_density", (px, py), (), 2, ghost, *scal)
+    out = _launch(_pair_density, (px, py), (), 2, ghost, *scal)
     density_pairs.launches += 1
     return out
 
@@ -338,8 +340,8 @@ def force_planes_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
     if _lib.dispatch(px) == "plain":
         return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
                                              scal, ghost=ghost)
-    out = _launch("rps_force_integrated", (px, py, P1, NPn, vx, vy), (NPo, npx, npy),
-                  4, ghost, *scal)
+    out = _launch(_force_integrated, (px, py, P1, NPn, vx, vy), (NPo, npx, npy), 4,
+                  ghost, *scal)
     force_planes_integrated.launches += 1
     return out
 
@@ -356,8 +358,8 @@ def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
     if _lib.dispatch(px) == "plain":
         return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
                                              scal, pair=True, ghost=ghost)
-    out = _launch("rps_pair_force_integrated", (px, py, P1, NPn, vx, vy),
-                  (NPo, npx, npy), 4, ghost, *scal)
+    out = _launch(_pair_force_integrated, (px, py, P1, NPn, vx, vy), (NPo, npx, npy),
+                  4, ghost, *scal)
     force_pairs_integrated.launches += 1
     return out
 
@@ -374,7 +376,7 @@ def force_planes(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = 
     _check_shapes((px, py, P1, NPn, vx, vy), (NPo,), ghost)
     if _lib.dispatch(px) == "plain":
         return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, ghost=ghost)
-    out = _launch("rps_force", (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
+    out = _launch(_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
     force_planes.launches += 1
     return out
 
@@ -390,8 +392,7 @@ def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = F
     if _lib.dispatch(px) == "plain":
         return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, pair=True,
                                   ghost=ghost)
-    out = _launch("rps_pair_force", (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost,
-                  *scal[:2])
+    out = _launch(_pair_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
     force_pairs.launches += 1
     return out
 

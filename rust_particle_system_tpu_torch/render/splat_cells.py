@@ -115,6 +115,9 @@ def raster_cells_plain(px, py, color, grid, rspec: GridSpec, height: int, width:
     return img[:3].permute(1, 2, 0), img[3]
 
 
+_raster = _lib.kernel("rps_splat_cells")
+
+
 def raster_cells(px, py, color, grid, rspec: GridSpec, height: int, width: int,
                  scal: tuple):
     """Kernel K11: ([H, W, 3] premultiplied RGB, [H, W] coverage) of the
@@ -136,13 +139,11 @@ def raster_cells(px, py, color, grid, rspec: GridSpec, height: int, width: int,
     if perm.dtype != torch.int32 or starts.dtype != torch.int32 or starts.numel() != (
             rspec.num_cells + 1):
         raise ValueError("expected int32 perm and [num_cells + 1] int32 starts")
-    rgb = torch.empty((height, width, 3), dtype=torch.float32, device=px.device)
-    a = torch.empty((height, width), dtype=torch.float32, device=px.device)
-    lib = _lib.library()
-    _lib.check("rps_splat_cells", lib.rps_splat_cells(
-        px.data_ptr(), py.data_ptr(), color.data_ptr(), perm.data_ptr(),
-        starts.contiguous().data_ptr(), rgb.data_ptr(), a.data_ptr(), color.stride(0),
-        rspec.gw, rspec.gh, rspec.capacity, height, width, *scal, _lib.stream()))
+    rgb = torch.empty(height, width, 3, dtype=torch.float32, device=px.device)
+    a = torch.empty(height, width, dtype=torch.float32, device=px.device)
+    _raster(px.data_ptr(), py.data_ptr(), color.data_ptr(), perm.data_ptr(),
+            starts.contiguous().data_ptr(), rgb.data_ptr(), a.data_ptr(), color.stride(0),
+            rspec.gw, rspec.gh, rspec.capacity, height, width, *scal)
     raster_cells.launches += 1
     return rgb, a
 

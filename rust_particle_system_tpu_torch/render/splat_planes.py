@@ -136,6 +136,9 @@ def raster_planes_plain(ppx, ppy, cols, geom: tuple, scal: tuple, clamp_drift: b
     return img.contiguous()
 
 
+_raster = _lib.kernel("rps_splat_planes")
+
+
 def raster_planes(ppx, ppy, cols, geom: tuple, scal: tuple, clamp_drift: bool):
     """Kernel K4: ``[len(cols) + 1, H, W]`` accumulators (each colour x alpha,
     then alpha) of the live slots of pixel-space planes ``ppx, ppy`` (dead
@@ -149,13 +152,10 @@ def raster_planes(ppx, ppy, cols, geom: tuple, scal: tuple, clamp_drift: bool):
     H, W, sx, sy, m = geom
     gh, gw, C = ppx.shape
     nch = len(cols) + 1
-    out = torch.empty((nch, H, W), dtype=torch.float32, device=ppx.device)
-    b = cols[2].data_ptr() if nch == 4 else None
-    lib = _lib.library()
-    _lib.check("rps_splat_planes", lib.rps_splat_planes(
-        ppx.data_ptr(), ppy.data_ptr(), cols[0].data_ptr(), cols[1].data_ptr(), b,
-        out.data_ptr(), gh, gw, C, H, W, sx, sy, m, nch, int(clamp_drift), *scal,
-        _lib.stream()))
+    out = torch.empty(nch, H, W, dtype=torch.float32, device=ppx.device)
+    b = cols[2].data_ptr() if nch == 4 else 0
+    _raster(ppx.data_ptr(), ppy.data_ptr(), cols[0].data_ptr(), cols[1].data_ptr(), b,
+            out.data_ptr(), gh, gw, C, H, W, sx, sy, m, nch, int(clamp_drift), *scal)
     raster_planes.launches += 1
     return out
 
