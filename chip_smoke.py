@@ -25,7 +25,10 @@ line each:
      each of its four modes, each whole variant, and variant 5 against K1,
      bit-equal on the same states, and in band mode on the 4 x 31 rows; K12
      (variants 2 and 3) bit-equal, also where counts exceed C; K2, K3 and
-     K3b at the stated tolerances; the
+     K3b at the stated tolerances, on the 1M state with and without forced
+     deferrals and on the strip walks' edges (a width that is not a
+     multiple of the strip, cells with all C slots live, an empty strip
+     beside air rows, C = 32, 64, 40 and 1024); the
      unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
      the 1080p image of the stepped state (sum rule, given colours, radius 2)
      and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
@@ -134,6 +137,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1085,6 +1089,39 @@ def main() -> int:
                 max(max_abs(fu.vx, fz.vx, lv), max_abs(fu.vy, fz.vy, lv)))
     print(f"phase 2: K3b velocity update within rtol 1e-4 / atol 1e-2 ({k3b_err:.2e}); "
           f"unfused vs fused tail, 1M: pos {tail_err[0]:.2e} vel {tail_err[1]:.2e}")
+
+    # The strip walks' edges (K2, K3, K3b at their bars): a width that is not
+    # a multiple of the strip, cells with every slot live (rounds of threads,
+    # windows streamed through several tiles), an empty strip beside air
+    # rows, and C = 32, 64, 40 and 1024, from demo planes jittered by up to
+    # `drift` cells, whose out-of-cell particles the defer mask parks.  The
+    # strip's width is the kernel's own constant.  The rows' max_abs_err stays
+    # the main path's; these errors have the line below.
+    src = (HERE / "rust_particle_system_tpu_torch" / "csrc" / "sph.cu").read_text()
+    strip = int(re.search(r"constexpr int kStripCells = (\d+);", src).group(1))
+    edges = {}
+    for label, bounds, cap, h, fill, drift in (
+            ("gw 21, C=64", (-95.0, 95.0, -50.0, 50.0), 64, 9.5, 0.4, 0.3),
+            ("crowded C=128", (-45.0, 45.0, -18.0, 18.0), 128, 9.0, 1.0, 0.05),
+            ("empty strip, air rows, C=32", (-180.0, 180.0, -45.0, 45.0), 32, 9.0, 0.5, 0.3),
+            ("crowded C=40", (-90.0, 90.0, -27.0, 27.0), 40, 9.0, 1.0, 0.05),
+            ("crowded C=1024", (-18.0, 18.0, -9.0, 9.0), 1024, 9.0, 1.0, 0.05)):
+        sp = GridSpec.from_bounds(bounds, h, cap)
+        prm = make_params(bounds=bounds, gravity=300.0, smoothing_radius=h)
+        pl = demo_planes(torch, sp, fill, drift, seed=cap + int(h), device="cuda")
+        if label.startswith("empty"):
+            for c, p in enumerate(pl):
+                p[:, strip:2 * strip] = 1e6 if c < 2 else 0.0  # the second strip
+                p[4:6] = 1e6 if c < 2 else 0.0  # two air rows
+        fa = fused_inputs(density_planes, pl[0], pl[1], pl[2] * 20, pl[3] * 20, sp, prm)
+        ed = check_density(f"K2 ({label})", density_planes, fa[0], fa[1], prm)[1]
+        ef, nd = check_fused(f"K3 ({label})", force_planes_integrated, fa, prm)
+        require(nd > 0, f"K3 ({label}): no deferred slot")
+        er = check_raw(f"K3b ({label})", force_planes, fa, prm)
+        edges[label] = (ed, ef, er)
+    require(spec.gw % strip and 21 % strip, f"the strip of {strip} cells divides a tested width")
+    print(f"phase 2: K2/K3/K3b within their bars on the strip edges (strip of {strip} cells; "
+          f"errors K2, K3, K3b): {json.dumps(edges)}")
 
     # K4 on the image of the stepped 1M state: the fused frame's inputs (sum
     # rule), given colours (4 channels), radius-2 sprites (margin 3).

@@ -2,9 +2,10 @@
 //
 // Layout contract (the port's ops/cuda/*.py): every plane is a contiguous
 // float32 [gh, gw, C] tensor; slot s of cell (r, c) sits at ((r*gw + c)*C + s).
-// Dead slots carry x = y = SENTINEL.  One block serves one cell; its
-// blockDim.x is C rounded up to a multiple of 32, thread s owns slot s, and
-// threads s >= C only take part in the block-wide ballots.
+// Dead slots carry x = y = SENTINEL.  A per-cell kernel gives one block to
+// one cell; its blockDim.x is C rounded up to a multiple of 32, thread s owns
+// slot s, and threads s >= C only take part in the block-wide ballots.  (The
+// strip walks of sph.cu map threads to live particles instead.)
 #pragma once
 
 #include <cuda_runtime.h>

@@ -34,11 +34,14 @@ walks give 0 accumulators to slots whose walk position is parked (the JAX
 kernel leaves finite garbage there or zeroes a gated chunk; those values are
 never read back).
 
-The walks are arithmetic-bound on the H100 (a sqrt and a divide per pair in
-K3).  The kernels stage only the live neighbour slots of a cell in shared
-memory, so the pair loop runs over live neighbours instead of the TPU's dense,
-lane-padded 9C window.  The plain versions below evaluate the dense window in
-row chunks so that they fit in device memory at the main-path size.
+The walks are arithmetic-bound on the H100 (an rsqrt per force pair).  The
+kernels stage only the live neighbour slots in shared memory, so a pair loop
+runs over live neighbours instead of the TPU's dense, lane-padded 9C window.
+K2, K3 and K3b give a thread to each live particle of a strip of cells of one
+row (the strip, the block and the tile of staged neighbours are fixed in
+``csrc/sph.cu``); K6 gives a block to each pair of cells.  The plain versions
+below evaluate the dense window in row chunks so that they fit in device
+memory at the main-path size.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ EPS2 = float(np.float32(EPS_DIST) ** 2)  # float32(1e-4)^2 in f32, as JAX forms 
 
 # Plain versions: pair elements per row chunk (about 128 MB per f32 temporary).
 PLAIN_CHUNK_ELEMS = 1 << 25
+
+MAX_CAPACITY = 1024  # the largest C the strip walks take (csrc/sph.cu::kMaxC)
 
 
 def _live(x):
@@ -161,13 +166,17 @@ _pair_force_integrated = _lib.kernel("rps_pair_force_integrated")
 _pair_force = _lib.kernel("rps_pair_force")
 
 
-def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars):
+def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars, strips: bool = True):
     """Launch a walk kernel: neighbour-side planes ``nbr`` ``[gh, gw, C]``
     (with a ghost row on each side if ``ghost``), own-side planes ``own`` (their
     shapes checked by :func:`_check_shapes`) and ``n_out`` new output planes
-    ``[R, gw, C]``, then the grid shape and ``scalars`` by value."""
-    _lib.require_cuda(*nbr, *own)
+    ``[R, gw, C]``, then the grid shape and ``scalars`` by value.  A strip
+    walk (not K6's pair walks, ``strips=False``) raises ValueError for a C
+    outside 1..MAX_CAPACITY."""
     gh, gw, C = nbr[0].shape
+    if strips and not 1 <= C <= MAX_CAPACITY:
+        raise ValueError(f"the strip walks take 1 <= C <= {MAX_CAPACITY} slots a cell, got {C}")
+    _lib.require_cuda(*nbr, *own)
     r0, r1 = _own_rows(gh, ghost)
     outs = _lib.empty_f32(n_out, (r1 - r0, gw, C), own[0] if own else nbr[0])
     launch(*[t.data_ptr() for t in (*nbr, *own, *outs)], gh, r0, r1 - r0, gw, C, *scalars)
@@ -203,7 +212,7 @@ def density_pairs(px, py, params: SimParams, ghost: bool = False):
     _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
         return density_planes_plain(px, py, *scal, pair=True, ghost=ghost)
-    out = _launch(_pair_density, (px, py), (), 2, ghost, *scal)
+    out = _launch(_pair_density, (px, py), (), 2, ghost, *scal, strips=False)
     density_pairs.launches += 1
     return out
 
@@ -359,7 +368,7 @@ def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
         return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
                                              scal, pair=True, ghost=ghost)
     out = _launch(_pair_force_integrated, (px, py, P1, NPn, vx, vy), (NPo, npx, npy),
-                  4, ghost, *scal)
+                  4, ghost, *scal, strips=False)
     force_pairs_integrated.launches += 1
     return out
 
@@ -392,7 +401,8 @@ def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = F
     if _lib.dispatch(px) == "plain":
         return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, pair=True,
                                   ghost=ghost)
-    out = _launch(_pair_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
+    out = _launch(_pair_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2],
+                  strips=False)
     force_pairs.launches += 1
     return out
 

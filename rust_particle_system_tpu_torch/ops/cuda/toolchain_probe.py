@@ -113,7 +113,8 @@ dot_f32.launches = 0
 def dot_tf32(a, b):
     """Kernel K13b: ``a @ b`` on the tensor cores in TF32 (``mma.sync``
     m16n8k8).  The inner and column sizes must be multiples of 8; rows are
-    padded with zeros to a multiple of 16 and cut off again."""
+    padded with zeros to a multiple of 16 and cut off again (no view when
+    none was padded)."""
     _check_product(a, b)
     if _lib.dispatch(a) == "plain":
         return dot_tf32_plain(a, b)
@@ -128,7 +129,7 @@ def dot_tf32(a, b):
     (c,) = _lib.empty_f32(1, (mp, n), a)
     _dot_tf32(a.data_ptr(), b.data_ptr(), c.data_ptr(), mp, n, k)
     dot_tf32.launches += 1
-    return c[:m]
+    return c if mp == m else c[:m]
 
 
 dot_tf32.launches = 0
