@@ -17,24 +17,27 @@ line each:
   2  each kernel against its plain PyTorch version on the card, at the
      main-path shape (default 1920x1080 bounds, 9-unit cells: gw=214, gh=121,
      C=128) from a 1M-particle uniform state after a few live frames:
-     K5 and K1 bit-equal (K1 also on a state with air rows, and at C=16 and
-     C=64 on a small grid); K7 on each of 4 bands of the 1M state on the
-     grid padded to 124 rows (and with air rows across a band boundary, and
-     8 bands of one row on a small grid) bit-equal to K1's rows and to its
-     plain version; K9 (the hole-fill passes of rebin variants 4 and 5) in
-     each of its four modes, each whole variant, and variant 5 against K1,
-     bit-equal on the same states, and in band mode on the 4 x 31 rows; K12
-     (variants 2 and 3) bit-equal, also where counts exceed C; K2, K3 and
-     K3b at the stated tolerances, on the 1M state with and without forced
-     deferrals and on the strip walks' edges (a width that is not a
-     multiple of the strip, cells with all C slots live, an empty strip
-     beside air rows, C = 32, 64, 40 and 1024); the
-     unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
+     K5 and K1 bit-equal (K1 also on a state with air rows, at C=16 and
+     C=64 on a small grid, and on the tile's edges: at C=16, 64, 128 and
+     1024, a width of two tiles and 3 columns, T read from csrc/rebin.cu);
+     K7 on each of 4 bands of the 1M state on the grid padded to 124 rows
+     (with live rows past the grid's edges, which it must not read, with air
+     rows across a band boundary, and 8 bands of one row on a small grid)
+     bit-equal to K1's rows and to its plain version; K9 (the hole-fill
+     passes of rebin variants 4 and 5) in each of its four modes, each whole
+     variant, and variant 5 against K1, bit-equal on the same states, and in
+     band mode on the 4 x 31 rows; K12 (variants 2 and 3) bit-equal, also
+     where counts exceed C; K2, K3 and K3b at the stated tolerances, on the
+     1M state with and without forced deferrals and on the strip walks'
+     edges (a width that is not a multiple of the strip, cells with all C
+     slots live, an empty strip beside air rows, C = 32, 64, 40 and 1024);
+     the unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
      the 1080p image of the stepped state (sum rule, given colours, radius 2)
      and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
      three walks on a 1M uniform pair-packed state (C=64, the JAX package's
      headline configuration, bench.py:387-389) with forced deferrals, at C=32
-     and on an odd-width grid, and against K2/K3 on the same C=64 planes; K8
+     and on an odd-width grid, and bit-equal to K2/K3/K3b on the same C=64
+     planes (K6 launches their strip walk); K8
      at n = 16,384 and 1000, coincident particles included; K11 (the
      cell-binned splat) at 1080p, capacity 64, rtol/atol 1e-4 with equal
      overflow, on a 1M uniform state, the 50k scene's state under the camera
@@ -269,6 +272,15 @@ def close(a, b, rtol: float, atol: float, mask=None) -> bool:
     if mask is not None:
         a, b = a[mask], b[mask]
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
+
+
+def rebin_tile_width(C: int) -> int:
+    """T, the own columns of one K1 block at C slots a cell: tile_cols(C) - 3
+    of csrc/rebin.cu."""
+    src = (HERE / "rust_particle_system_tpu_torch" / "csrc" / "rebin.cu").read_text()
+    expr = re.search(r"constexpr int tile_cols\(int C\) \{ return (.*?); \}", src).group(1)
+    clamp = lambda v, lo, hi: max(lo, min(hi, v))
+    return eval(expr.replace("/", "//"), {"clamp_int": clamp}, {"C": C}) - 3
 
 
 def demo_planes(torch, spec, fill_frac: float, drift: float, seed: int, device):
@@ -810,23 +822,46 @@ def main() -> int:
             y, cy = rebin_planes_plain(pl, small)
             require(all(torch.equal(p, q) for p, q in zip(x, y)) and torch.equal(cx, cy),
                     f"K1 rebin differs from its plain version (C={C}, drift={drift})")
+    # The tile's edges: three tiles a row, the last one 3 columns wide (gw is
+    # not a multiple of T), at each tile width the main paths and C=1024 give.
+    # Two cell widths at which the kernel's key cuts walk up from j * w to the
+    # least float that reaches cell j (j = 7 and 13).
+    tile_grids = {}
+    for C, cell in ((16, 9.0), (64, 5.403036594390869), (128, 0.8290607333183289),
+                    (1024, 9.0)):
+        T = rebin_tile_width(C)
+        sp = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=cell, gw=2 * T + 3, gh=5,
+                      capacity=C)
+        require(sp.gw % T != 0, f"C={C}: gw {sp.gw} is a multiple of the tile {T}")
+        for drift in (0.4, 1.8):
+            pl = demo_planes(torch, sp, 0.7, drift, seed=C + int(10 * drift) + 1,
+                             device="cuda")
+            x, cx = rebin_planes(pl, sp)
+            y, cy = rebin_planes_plain(pl, sp)
+            require(all(torch.equal(p, q) for p, q in zip(x, y)) and torch.equal(cx, cy),
+                    f"K1 rebin differs from its plain version (C={C}, gw {sp.gw} = 2 x "
+                    f"tile {T} + 3, drift={drift})")
+            tile_grids[f"C={C}, gw {sp.gw}, cell {cell}, drift {drift}"] = (pl, sp)
     record("K1", "K1 rebin", "rust_particle_system_tpu_torch/csrc/rebin.cu",
            "rust_particle_system_tpu/ops/pallas/rebin.py:442", k1_err,
            cuda_ms(lambda: rebin_planes(rin, spec), 20),
            cuda_ms(lambda: rebin_planes_plain(rin, spec), 5),
            nbytes(*rin, *a, ca), 0)
-    print("phase 2: K1 bit-equal (1M stepped, air rows, C=16 and C=64 x drift 0.4/0.9/1.8)")
+    print("phase 2: K1 bit-equal (1M stepped, air rows, C=16 and C=64 x drift 0.4/0.9/1.8, "
+          f"tile edges: {', '.join(tile_grids)})")
 
     # K7: the 1M state on the grid padded to 4 bands (gh 121 -> 124, 31 rows
     # each), a few frames in; each band's K7 (ghost rows from the neighbour
     # bands, zeros past the grid's edges) against K1's rows of the whole grid
     # and against its plain version, with and without air rows; then 8 bands
     # of one row on a small grid.
-    def check_k7(label, planes, sp, n_bands):
+    def check_k7(label, planes, sp, n_bands, past=0.0):
+        """``past``: the value of the ghost rows past the grid's edges (1.5 is
+        a live position: a read there would change the result)."""
         full, cfull = rebin_planes(planes, sp)
         Rb = sp.gh // n_bands
-        zeros = torch.zeros_like(planes[0][0])
-        row = lambda c, r: planes[c][r] if 0 <= r < sp.gh else zeros
+        edge = torch.full_like(planes[0][0], past)
+        row = lambda c, r: planes[c][r] if 0 <= r < sp.gh else edge
         calls, err = [], 0.0
         for b in range(n_bands):
             r0 = b * Rb
@@ -853,6 +888,7 @@ def main() -> int:
         ps7 = R.plane_step(ps7, params, spec7)
     rin7 = R.predict_planes(ps7, params)
     k7_calls, k7_err = check_k7("1M stepped", rin7, spec7, 4)
+    check_k7("1M stepped, live rows past the edges", rin7, spec7, 4, past=1.5)
     air7 = [p.clone() for p in rin7]
     for c, p in enumerate(air7):
         p[29:33] = 1e6 if c < 2 else 0.0  # air across the boundary of bands 0 and 1
@@ -860,15 +896,18 @@ def main() -> int:
     small8 = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=8, capacity=16)
     for drift in (0.4, 0.9, 1.8):
         check_k7(f"R=1, drift {drift}", demo_planes(torch, small8, 0.7, drift, seed=80,
-                                                    device="cuda"), small8, 8)
+                                                    device="cuda"), small8, 8, past=1.5)
     args7, out7, cnt7 = k7_calls[1]  # an inner band
+    k7_dev = device_ms(lambda: rebin_planes_band(*args7), 10)
     record("K7", "K7 band rebin (31 of 124 rows)", "rust_particle_system_tpu_torch/csrc/rebin.cu",
            "rust_particle_system_tpu/ops/pallas/rebin.py:765", k7_err,
            cuda_ms(lambda: rebin_planes_band(*args7), 20),
            cuda_ms(lambda: rebin_planes_band_plain(*args7), 5),
            nbytes(*args7[0], *args7[4], *args7[5], *args7[6], *out7, cnt7), 0)
     print("phase 2: K7 bit-equal to K1's rows and to its plain version (1M on 4 x 31 rows, "
-          "air rows across a band boundary, 8 bands x 1 row x drift 0.4/0.9/1.8)")
+          "with live rows past the edges, air rows across a band boundary, 8 bands x 1 row x "
+          f"drift 0.4/0.9/1.8); an inner band {rows['K7']['ms']:.4f} ms a call by events, "
+          f"its kernel {k7_dev:.4f} ms by the profiler [{card}]")
 
     # K9: the separable hole-fill pass of rebin variants 4 and 5, in each of
     # its four modes (pass Y / pass X, lossy / lossless) against its plain
@@ -905,6 +944,8 @@ def main() -> int:
             check_k9(f"C={C}, drift {drift}",
                      demo_planes(torch, small, 0.7, drift, seed=C + int(10 * drift),
                                  device="cuda"), small)
+    for label, (pl, sp) in tile_grids.items():
+        check_k9(label, pl, sp)
     # K9's band mode (the sharded step's variant 5): pass Y on each 31-row
     # band of the padded 1M state with the neighbour rows as ghost rows (the
     # fills past the grid, as the mesh gives them), then pass X band-local.
@@ -939,7 +980,8 @@ def main() -> int:
            nbytes(*flats1, *midY, accY, *mergedY, *outX, cntX, accX) + 4 * nc1, 0)
     print("phase 2: K9 bit-equal to its plain version in its four modes and as variants 4 "
           "and 5, variant 5 bit-equal to K1 (1M stepped, air rows, C=16 and C=64 x drift "
-          "0.4/0.9/1.8), and in band mode on 4 x 31 rows of the padded 1M state")
+          "0.4/0.9/1.8, K1's tile edges), and in band mode on 4 x 31 rows of the padded 1M "
+          "state")
 
     # K12: the full-window compaction of variants 2 and 3, both routed to it;
     # the same states, and a crowded small grid whose counts exceed C.
@@ -1227,19 +1269,16 @@ def main() -> int:
         require(nd > 0, f"K6 ({label}): no deferred slot")
         k6f_err = max(k6f_err, e)
         k6r_err = max(k6r_err, check_raw(f"K6 ({label})", force_pairs, fa, prm, pair=True))
-    # Against the classic kernels on the same C=64 planes (the layouts differ
-    # only in block shape): K2's and K3's bars.
-    ca_ = density_planes(wx, wy, p2)
-    require(all(close(x, y, 1e-5, 0.0, wx < 5e5) for x, y in zip((rho2, rhon2), ca_)),
-            "K6 density differs from K2 at C=64 beyond rtol 1e-5")
-    kf, cf = force_pairs_integrated(*fargs2, p2), force_planes_integrated(*fargs2, p2)
-    live2 = qx < 5e5
-    require(all(close(x, y, 1e-4, 1e-4 if i < 2 else 1e-2, live2)
-                for i, (x, y) in enumerate(zip(kf, cf))),
-            "K6 fused walk differs from K3 at C=64 beyond the K3 bars")
-    require(all(torch.equal(x[~live2], y[~live2]) for x, y in zip(kf, cf)),
-            "K6 and K3 park dead slots differently")
-    vs_classic = max(max_abs(x, y, live2) for x, y in zip(kf, cf))
+    # Against the classic kernels on the same C=64 planes: K6 launches their
+    # strip walk, which sums each slot's window in the pair window's order, so
+    # every output is theirs bit for bit.
+    same6 = lambda a_, b_: all(torch.equal(x, y) for x, y in zip(a_, b_))
+    require(same6((rho2, rhon2), density_planes(wx, wy, p2)),
+            "K6 density differs from K2 on the same C=64 planes")
+    require(same6(force_pairs_integrated(*fargs2, p2), force_planes_integrated(*fargs2, p2)),
+            "K6 fused walk differs from K3 on the same C=64 planes")
+    require(same6(force_pairs(*fargs2[:7], p2), force_planes(*fargs2[:7], p2)),
+            "K6 raw walk differs from K3b on the same C=64 planes")
     # Times in turns on the same planes: K6, classic, classic, K6.
     bargs2 = fargs2[:7]
     pair_ms = {"K6 density": [], "K2 density (C=64)": [], "K6 force + tail": [],
@@ -1277,8 +1316,8 @@ def main() -> int:
            nbytes(*bargs2) + nbytes(*bargs2[:4]), window_pairs(bargs2[0]) * OPS_FORCE_PAIR)
     print(f"phase 2: K6 (1M pair-packed C=64, {pairs2} window pairs) density "
           f"{k6d_err:.2e}, fused {max(k6f_err, k6f_err_d):.2e} ({n_def2} forced "
-          f"deferrals), raw {k6r_err:.2e}, also at C=32 and odd gw; vs K2/K3 at C=64 "
-          f"{vs_classic:.2e}; ms in turns {json.dumps(pair_ms)} [{card}]")
+          f"deferrals), raw {k6r_err:.2e}, also at C=32 and odd gw; bit-equal to K2/K3/K3b "
+          f"at C=64; ms in turns {json.dumps(pair_ms)} [{card}]")
 
     # K8: the N-body disc at n = 16,384 (BASELINE.json config 3) and 1000, and
     # 1000 particles of which 500 share one point.  Bar: the JAX test's rtol

@@ -6,16 +6,15 @@
 // counts are bit-identical to it: values only move, never change, and every
 // decision is an integer rank.
 //
-// One pair of kernels serves both.  Every row test (the edge guards, the key
-// row compares) is in GLOBAL grid rows, so a block of a band sees exactly the
+// One kernel serves both.  Every row test (the edge guards, the key row
+// compares) is in GLOBAL grid rows, so a block of a band sees exactly the
 // decisions the same row's block sees on the whole grid.  A launch owns the
-// global rows [row0, row0 + rows); global row r of the input sits at input row
-// r - row0 + in_off, and its outputs at row r - row0.  K1 is row0 = 0,
-// in_off = 0 on the [gh, gw, C] planes.  K7 takes the band's [R, gw, C] slab
-// extended by the ghost rows a neighbour band owns, in_off = 2: input rows
-// row0-2 (x/y only are read there), row0-1, the R own rows, row0+R.  Reads of
-// rows outside the grid are guarded by the global-row conditions, so ghost
-// rows past the mesh's edges may hold anything.
+// global rows [row0, row0 + rows) of [rows, gw, C] planes and writes its
+// outputs there.  K1 is row0 = 0, rows = gh.  K7 passes the band's slab and,
+// beside it, the ghost rows a neighbour band owns, each [gw, C], read where
+// they lie: row0-2 (x/y only), row0-1 and row0+rows (every channel).  Reads
+// of rows outside the grid are guarded by the global-row conditions, so ghost
+// rows past the mesh's edges are never read and may hold anything.
 //
 // What it computes, per destination cell (r, c), with keys taken from (x, y)
 // by the IEEE floor expression (rebin.py:489-494):
@@ -32,249 +31,457 @@
 //   X-retention  needs mid of columns c-2..c+1 (rebin.py:682-689).
 //   counts   live slots per cell after both passes.
 //
-// Bound on the H100: memory.  Each pass reads ~10 and writes k=5 plane words
-// per slot (~200 MB per frame at 1M particles, C=128); the ranks are a few
-// ballots per slot.  The TPU built ranks from triangular matmuls and applied
-// them with one-hot matmuls because its lanes cannot scatter; here ranks are
-// __ballot_sync + __popc per warp plus a shared prefix over the warps, and an
-// arrival is placed by one shared-memory index write.  A whole grid row does
-// not fit in shared memory at 214 cells x 128 slots x 5 channels (548 KB), so
-// the two passes are two launches with "mid" in device memory: a pass-X block
-// reads its four source columns of mid from L2/HBM.
+// Bound on the H100: memory.  The least traffic reads the k planes once and
+// writes them once (132.6 MB at 1M particles, C=128, k=5).  Two facts make
+// one launch enough: pass Y's decisions for cell (r, c) read column c of rows
+// r-2..r+1 only, and pass X's for (r, c) read mid of row r, columns c-2..c+1
+// only.  So a block owns T = tile_cols(C) - 3 adjacent columns of one row:
+//   cuts     a thread per cut computes the block's key cuts (below), then a
+//            __syncthreads.
+//   phase Y  a warp per column of [c0-2, c0+T+1) (the own columns and the
+//            halo pass X reads) loads x/y of its four rows (a chunk's eight
+//            loads together, the next chunk's in flight), ranks by one
+//            ballot per 32-slot chunk and predicate (running chunk prefixes
+//            in registers, the chunks' ballots in the warp's shared scratch:
+//            no block-wide count), and writes one word per mid slot to shared
+//            memory: the SOURCE, the input slot it holds (row delta -1/0/+1,
+//            slot), and its class for pass X (key row r and moving left or
+//            right, or staying), or -1 for a fill.  No value moves.
+//   a __syncthreads.
+//   phase X  a warp per own column ranks on the classes of columns c-2..c+1
+//            and COMPOSES the source: an out slot <- a mid slot (c-1, c or
+//            c+1) <- an input slot.  Pass X moves only live mid slots, so a
+//            composed source is an input slot or a fill.  Then each own slot
+//            reads its k values once, straight from the input planes, or
+//            writes the fills; the counts are a ballot per chunk.
+// mid never leaves shared memory (4 bytes a slot), every value crosses device
+// memory once each way, and only x/y of the halo rows and columns are read
+// again (from L2).  No key is divided out per slot: each test "key >= j" is a
+// compare against the least float that reaches cell j, found once a block
+// (Cut below).  Measured on the card, the time goes to the ranking's
+// instructions and to phase Y's x/y reads from L2, not to device memory
+// (PERF.md, section 6).  A hole filled from row r-1 or r+1 (a rare arrival)
+// loads that slot's x/y to class it.  The TPU built ranks from triangular
+// matmuls and applied them with one-hot matmuls because its lanes cannot
+// scatter; here ranks are ballots and popcounts, and the n-th arrival is
+// found by walking the chunks' ballots.
 //
 // The JAX kernel's air-window skip (rebin.py:512-538) is an exact shortcut of
-// the same result and is not needed: a block with nothing live does a few
-// empty ballots and writes fills.
+// the same result: here a column with nothing live ranks empty ballots,
+// composes fills and gathers nothing.
 
 #include "common.cuh"
 
 namespace {
 
-using rps::cell_of;
 using rps::for_channels;
-using rps::InPlanes;
 using rps::kLiveBelow;
 using rps::OutPlanes;
 
+constexpr int kTileWarps = 8;                 // warps a block
+constexpr int kTileThreads = 32 * kTileWarps;  // threads a block
+constexpr int kMaxC = 1024;                   // the largest C the rebin takes
+constexpr int kBallots = 5;  // ballots a chunk keeps for a column's second pass
+
+__host__ __device__ constexpr int clamp_int(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Columns of a block's phase Y at C slots a cell: its T = tile_cols(C) - 3
+// own columns, two to their left and one to their right.
+__host__ __device__ constexpr int tile_cols(int C) { return clamp_int(4096 / C, 8, 32); }
+
+// Shared bytes of a block: one word per slot of its tile_cols(C) columns
+// (pass Y's result, as pass X reads it), each warp's ballots of one column's
+// chunks, and the block's cuts (tile_cols(C) + 1 for kx, 3 for ky).
+__host__ __device__ constexpr size_t tile_shmem(int C) {
+  return static_cast<size_t>(4) * tile_cols(C) * C + 4 * kTileWarps * kBallots * ((C + 31) / 32) +
+         4 * (tile_cols(C) + 4);
+}
+static_assert(tile_shmem(kMaxC) <= 232448, "a tile fits one H100 block's shared memory");
+
 struct Geom {
   int k, gh, gw, C;
-  int row0, rows, in_off;  // own global rows [row0, row0 + rows); input row offset
+  int row0, rows;  // own global rows [row0, row0 + rows)
   float x_min, y_min, cell_w, cell_h;
 };
 
-// Slot s of cell (r, c), global row r, in the input planes.
-__device__ __forceinline__ size_t in_index(const Geom& g, int r, int c, int s) {
-  return (static_cast<size_t>(r - g.row0 + g.in_off) * g.gw + c) * g.C + s;
+// The input planes: the own rows, and the ghost rows of a band (null for K1,
+// whose ghost rows lie outside the grid and are never read).
+struct Src {
+  const float* own[rps::kMaxChannels];  // [rows, gw, C]
+  const float* lo1[rps::kMaxChannels];  // global row row0 - 1, [gw, C]
+  const float* hi1[rps::kMaxChannels];  // global row row0 + rows
+  const float* lo2[2];                  // global row row0 - 2: x, y
+};
+
+// Row rr (global, row0 - 1 <= rr <= row0 + rows) of channel ch.
+__device__ __forceinline__ const float* row_of(const Src& s, const Geom& g, int ch, int rr) {
+  if (rr == g.row0 - 1) return s.lo1[ch];
+  if (rr == g.row0 + g.rows) return s.hi1[ch];
+  return s.own[ch] + static_cast<size_t>(rr - g.row0) * g.gw * g.C;
 }
 
-// The same slot in the own-row planes (mid, out).
-__device__ __forceinline__ size_t own_index(const Geom& g, int r, int c, int s) {
-  return (static_cast<size_t>(r - g.row0) * g.gw + c) * g.C + s;
+// x (ch 0) or y (ch 1) of row rr, row0 - 2 <= rr <= row0 + rows.
+__device__ __forceinline__ const float* xy_row(const Src& s, const Geom& g, int ch, int rr) {
+  return rr == g.row0 - 2 ? s.lo2[ch] : row_of(s, g, ch, rr);
 }
 
-// Pass Y + Y-retention for cell (row0 + blockIdx.y, blockIdx.x): in -> mid.
-__global__ void rebin_pass_y(InPlanes in, float* __restrict__ mid, rps::Fills fills,
-                             Geom g) {
-  extern __shared__ int smem[];
-  int* scratch = smem;        // 8 * 32
-  int* src = smem + 8 * 32;   // C: window index of the arrival of each rank
-  const int c = blockIdx.x, r = g.row0 + blockIdx.y, s = threadIdx.x;
-  const bool act = s < g.C;
-  const size_t plane = static_cast<size_t>(g.rows) * g.gw * g.C;
-  const bool has_up = r >= 1, has_dn = r <= g.gh - 2;
-  const float* __restrict__ x = in.p[0];
-  const float* __restrict__ y = in.p[1];
+constexpr float kDead = rps::kSentinel;  // x of a slot that is not read
 
-  bool live0 = false;
-  int ky0 = 0;
-  bool keep_m1 = false, keep_p1 = false, dead_m1 = false, dead_p1 = false;
-  bool keep_m2_into_m1 = false;
-  if (act) {
-    const size_t o = in_index(g, r, c, s);
-    live0 = x[o] < kLiveBelow;
-    ky0 = cell_of(y[o], g.y_min, g.cell_h, g.gh);
-    if (has_up) {
-      const size_t u = in_index(g, r - 1, c, s);
-      const bool l = x[u] < kLiveBelow;
-      dead_m1 = !l;
-      keep_m1 = l && cell_of(y[u], g.y_min, g.cell_h, g.gh) >= r;
-    }
-    if (has_dn) {
-      const size_t d = in_index(g, r + 1, c, s);
-      const bool l = x[d] < kLiveBelow;
-      dead_p1 = !l;
-      keep_p1 = l && cell_of(y[d], g.y_min, g.cell_h, g.gh) <= r;
-    }
-    if (r >= 2) {  // row r-1's up group: competes with row r for r-1's holes
-      const size_t u2 = in_index(g, r - 2, c, s);
-      keep_m2_into_m1 = x[u2] < kLiveBelow &&
-                        cell_of(y[u2], g.y_min, g.cell_h, g.gh) >= r - 1;
-    }
-  }
-  const bool dead = act && !live0;
-  const bool into_m1 = live0 && has_up && ky0 <= r - 1;  // row r-1's down group
-  const bool into_p1 = live0 && has_dn && ky0 >= r + 1;  // row r+1's up group
-
-  const bool p[8] = {keep_m1, keep_p1, dead, into_m1, into_p1, keep_m2_into_m1,
-                     dead_m1, dead_p1};
-  int inc[8], tot[8];
-  rps::block_count<8>(p, inc, tot, scratch);
-  const int n_up = tot[0], n_arr = tot[0] + tot[1], n_holes = tot[2];
-
-  if (keep_m1 && inc[0] - 1 < n_holes) src[inc[0] - 1] = s;
-  if (keep_p1 && n_up + inc[1] - 1 < n_holes) src[n_up + inc[1] - 1] = g.C + s;
-  __syncthreads();
-  if (!act) return;
-
-  const bool adopted = (into_m1 && tot[5] + inc[3] - 1 < tot[6]) ||
-                       (into_p1 && inc[4] - 1 < tot[7]);
-  const bool keep_own = live0 && (ky0 == r || !adopted);  // stayer or retained
-  const int hrank = inc[2] - 1;
-  const size_t o = own_index(g, r, c, s);
-  if (keep_own) {
-    const size_t i = in_index(g, r, c, s);
-    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = in.p[ch][i]; });
-  } else if (dead && hrank < n_arr) {
-    const int w = src[hrank];
-    const size_t from = w < g.C ? in_index(g, r - 1, c, w)
-                                : in_index(g, r + 1, c, w - g.C);
-    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = in.p[ch][from]; });
-  } else {
-    for_channels(g.k, [&](int ch) { mid[ch * plane + o] = fills.v[ch]; });
-  }
+// A read-only load that stays where it is written: the compiler would sink a
+// load into the branch of the live test that uses it, so that a chunk's rows
+// were read one latency after another.
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
 }
 
-// Pass X + X-retention + counts for cell (row0 + blockIdx.y, blockIdx.x):
-// mid -> out.  It reads the cell's own row only.
-__global__ void rebin_pass_x(const float* __restrict__ mid, OutPlanes out,
-                             int* __restrict__ counts, rps::Fills fills, Geom g) {
-  extern __shared__ int smem[];
-  int* scratch = smem;
-  int* src = smem + 8 * 32;
-  const int c = blockIdx.x, r = g.row0 + blockIdx.y, s = threadIdx.x;
-  const bool act = s < g.C;
-  const size_t plane = static_cast<size_t>(g.rows) * g.gw * g.C;
-  const bool has_l = c >= 1, has_r = c <= g.gw - 2;
+// "key >= j" for key = cell_of(v, lo, w, n), as one compare of a = v - lo.
+// cell_of is clip(floor(RN(a / w)), 0, n - 1), and a correctly rounded
+// division by w > 0 is monotone in a, so the a with key >= j (1 <= j < n) are
+// those >= the least float t_j that reaches j; a NaN keys to 0.  Per slot a
+// subtraction and a compare then stand for an IEEE division.
+struct Cut {
+  float t;
+  bool always, never;  // j <= 0; j >= n
+  __device__ __forceinline__ bool at(float a) const { return always || (!never && a >= t); }
+};
 
-  bool liveM = false;
-  int mkx = 0, mky = 0;
-  bool kg0 = false, kg1 = false, dead_l = false, dead_r = false, g0_of_l = false;
-  if (act) {
-    const size_t o = own_index(g, r, c, s);
-    liveM = mid[o] < kLiveBelow;
-    mkx = cell_of(mid[o], g.x_min, g.cell_w, g.gw);
-    mky = cell_of(mid[plane + o], g.y_min, g.cell_h, g.gh);
-    if (has_l) {
-      const size_t u = own_index(g, r, c - 1, s);
-      const bool l = mid[u] < kLiveBelow;
-      dead_l = !l;
-      kg0 = l && cell_of(mid[plane + u], g.y_min, g.cell_h, g.gh) == r &&
-            cell_of(mid[u], g.x_min, g.cell_w, g.gw) >= c;
+__device__ __forceinline__ bool reaches(float a, float w, int j) {
+  return floorf(a / w) >= static_cast<float>(j);
+}
+
+// t_j for 1 <= j < n: positive, so the floats next to it are its bit
+// pattern -+ 1.
+__device__ float least_reaching(int j, float w) {
+  float t = static_cast<float>(j) * w;  // within a few ulps of t_j
+  const auto step = [](float v, int d) { return __int_as_float(__float_as_int(v) + d); };
+  while (reaches(step(t, -1), w, j)) t = step(t, -1);
+  while (!reaches(t, w, j)) t = step(t, 1);
+  return t;
+}
+
+// The cut for j, its t_j (if any) from a block's table.
+__device__ __forceinline__ Cut cut_of(int j, int n, const float* t_j) {
+  return Cut{j >= 1 && j < n ? *t_j : 0.0f, j <= 0, j >= n};
+}
+
+// What pass X reads of a mid slot: -1 dead (a fill), else (source << 2) |
+// its class in column c': 1 if its key row is r and kx < c' (it moves left),
+// 2 if its key row is r and kx > c' (right), 0 if it stays.
+constexpr int kLeft = 1, kRight = 2;
+
+struct Cuts {
+  Cut row, below;       // ky >= r, ky >= r + 1
+  Cut col, right;       // kx >= c', kx >= c' + 1
+  float y_min, x_min;
+  __device__ __forceinline__ int cls(float x, float y) const {
+    const float ay = y - y_min, ax = x - x_min;
+    if (!row.at(ay) || below.at(ay)) return 0;  // key row is not r
+    return !col.at(ax) ? kLeft : (right.at(ax) ? kRight : 0);
+  }
+};
+
+// x/y of one slot in the four rows phase Y reads.
+struct Fetched {
+  float x, y, xm, ym, xp, yp, xm2, ym2;
+};
+
+// Source codes: input slot `slot` of row r + dr, column c + dc, for an own
+// cell (r, c).  Pass Y's codes have dc = 0.
+__device__ __forceinline__ int source(int dr, int dc, int slot) {
+  return slot + 1024 * ((dr + 1) + 3 * (dc + 1));
+}
+constexpr int kColumnStep = 3 * 1024;  // source(dr, dc + 1, s) - source(dr, dc, s)
+
+// Slot of the n-th set bit (0-based) of the ballots bal[0], bal[kBallots], ...
+// (one word per 32-slot chunk); the caller knows it exists.
+__device__ __forceinline__ int nth_set(const unsigned* bal, int n) {
+  int q = 0;
+  unsigned b = bal[0];
+  for (int pc = __popc(b); n >= pc; pc = __popc(b)) {
+    n -= pc;
+    b = bal[++q * kBallots];
+  }
+  for (; n > 0; --n) b &= b - 1;
+  return q * 32 + __ffs(b) - 1;
+}
+
+// Phase Y for column c of row r, by one warp: mid[s], the pass-X word of
+// each mid slot.  ky_up: ky >= r - 1; k: the row's and this column's cuts.
+// bal: the warp's scratch, kBallots words per chunk.
+__device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, int c,
+                                         const Cut& ky_up, Cuts k, const float* xcut, int* mid,
+                                         unsigned* bal) {
+  const int lane = threadIdx.x & 31, C = g.C, nchunk = (C + 31) / 32;
+  const unsigned below = (1u << lane) - 1u;
+  const bool has_up = r >= 1, has_dn = r <= g.gh - 2, has_up2 = r >= 2;
+  k.col = cut_of(c, g.gw, xcut);
+  k.right = cut_of(c + 1, g.gw, xcut + 1);
+  const size_t col = static_cast<size_t>(c) * C;
+  const float* x0 = xy_row(src, g, 0, r) + col;
+  const float* y0 = xy_row(src, g, 1, r) + col;
+  const float* xu = has_up ? xy_row(src, g, 0, r - 1) + col : nullptr;
+  const float* yu = has_up ? xy_row(src, g, 1, r - 1) + col : nullptr;
+  const float* xd = has_dn ? xy_row(src, g, 0, r + 1) + col : nullptr;
+  const float* yd = has_dn ? xy_row(src, g, 1, r + 1) + col : nullptr;
+  const float* xu2 = has_up2 ? xy_row(src, g, 0, r - 2) + col : nullptr;
+  const float* yu2 = has_up2 ? xy_row(src, g, 1, r - 2) + col : nullptr;
+
+  // Pass 1: predicates, their ballots and totals; each own slot's word.
+  // 0 keep_m1 (row r-1's slot moves here), 1 keep_p1 (row r+1's), 2 dead,
+  // 3 into_m1 (moves to row r-1), 4 into_p1, 5 row r-2's slot moves to row
+  // r-1, 6 dead in row r-1, 7 dead in row r+1.
+  int tot[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  // x/y of rows r, r-1, r+1, r-2 at slot s (a dead x where not read).
+  const auto fetch = [&](int s) {
+    Fetched v{kDead, 0.0f, kDead, 0.0f, kDead, 0.0f, kDead, 0.0f};
+    if (s < C) {
+      v.x = load_now(x0 + s);
+      v.y = load_now(y0 + s);
+      if (has_up) {
+        v.xm = load_now(xu + s);
+        v.ym = load_now(yu + s);
+      }
+      if (has_dn) {
+        v.xp = load_now(xd + s);
+        v.yp = load_now(yd + s);
+      }
+      if (has_up2) {
+        v.xm2 = load_now(xu2 + s);
+        v.ym2 = load_now(yu2 + s);
+      }
     }
-    if (has_r) {
-      const size_t d = own_index(g, r, c + 1, s);
-      const bool l = mid[d] < kLiveBelow;
-      dead_r = !l;
-      kg1 = l && cell_of(mid[plane + d], g.y_min, g.cell_h, g.gh) == r &&
-            cell_of(mid[d], g.x_min, g.cell_w, g.gw) <= c;
-    }
-    if (c >= 2) {  // column c-1's left group: competes with column c for its holes
-      const size_t u2 = own_index(g, r, c - 2, s);
-      g0_of_l = mid[u2] < kLiveBelow &&
-                cell_of(mid[plane + u2], g.y_min, g.cell_h, g.gh) == r &&
-                cell_of(mid[u2], g.x_min, g.cell_w, g.gw) >= c - 1;
+    return v;
+  };
+  // The next chunk's eight loads are in flight while this one is ranked.
+  Fetched next = fetch(lane);
+  for (int q = 0; q < nchunk; ++q) {
+    const int s = q * 32 + lane;
+    const bool act = s < C;
+    const Fetched v = next;
+    if (q + 1 < nchunk) next = fetch(s + 32);
+    const bool live0 = v.x < kLiveBelow;
+    const float a0 = v.y - g.y_min;
+    const bool p[8] = {
+        v.xm < kLiveBelow && k.row.at(v.ym - g.y_min),      // ky >= r
+        v.xp < kLiveBelow && !k.below.at(v.yp - g.y_min),   // ky <= r
+        act && !live0,
+        live0 && has_up && !k.row.at(a0),                   // ky <= r - 1
+        live0 && has_dn && k.below.at(a0),                  // ky >= r + 1
+        v.xm2 < kLiveBelow && ky_up.at(v.ym2 - g.y_min),    // ky >= r - 1
+        has_up && act && !(v.xm < kLiveBelow),
+        has_dn && act && !(v.xp < kLiveBelow)};
+    if (act) mid[s] = live0 ? source(0, 0, s) << 2 | k.cls(v.x, v.y) : -1;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const unsigned b = __ballot_sync(0xffffffffu, p[f]);
+      tot[f] += __popc(b);
+      if (f < kBallots && lane == f) bal[q * kBallots + f] = b;
     }
   }
-  const bool dead = act && !liveM;
-  const bool in_row = liveM && mky == r;
-  const bool into_l = in_row && has_l && mkx <= c - 1;  // column c-1's right group
-  const bool into_r = in_row && has_r && mkx >= c + 1;  // column c+1's left group
+  __syncwarp();
 
-  const bool p[8] = {kg0, kg1, dead, into_l, into_r, g0_of_l, dead_l, dead_r};
-  int inc[8], tot[8];
-  rps::block_count<8>(p, inc, tot, scratch);
-  const int n_left = tot[0], n_arr = tot[0] + tot[1], n_holes = tot[2];
+  // Pass 2: hole h takes arrival h (row r-1's keeps, then row r+1's) while
+  // h < #arrivals; a mover that its neighbour row adopted leaves a fill.
+  const int n_up = tot[0], n_arr = tot[0] + tot[1];
+  int pre_d = 0, pre_u = 0, pre_n = 0;
+  for (int q = 0; q < nchunk; ++q) {
+    const int s = q * 32 + lane;
+    const unsigned bd = bal[q * kBallots + 2], bu = bal[q * kBallots + 3],
+                   bn = bal[q * kBallots + 4];
+    const bool dead = (bd >> lane) & 1u;
+    const int hrank = pre_d + __popc(bd & below);
+    const bool adopted =
+        (((bu >> lane) & 1u) && tot[5] + pre_u + __popc(bu & below) < tot[6]) ||
+        (((bn >> lane) & 1u) && pre_n + __popc(bn & below) < tot[7]);
+    pre_d += __popc(bd);
+    pre_u += __popc(bu);
+    pre_n += __popc(bn);
+    if (s >= C) continue;
+    if (dead && hrank < n_arr) {
+      const bool from_up = hrank < n_up;
+      const int w = from_up ? nth_set(bal, hrank) : nth_set(bal + 1, hrank - n_up);
+      const int rr = from_up ? r - 1 : r + 1;
+      const float x = __ldg(xy_row(src, g, 0, rr) + col + w);
+      mid[s] = source(from_up ? -1 : 1, 0, w) << 2 | k.cls(x, __ldg(xy_row(src, g, 1, rr) + col + w));
+    } else if (adopted) {
+      mid[s] = -1;
+    }
+  }
+  __syncwarp();  // the scratch is rewritten by the warp's next column
+}
 
-  if (kg0 && inc[0] - 1 < n_holes) src[inc[0] - 1] = s;
-  if (kg1 && n_left + inc[1] - 1 < n_holes) src[n_left + inc[1] - 1] = g.C + s;
-  __syncthreads();
+// Phase X for own column c of row r, by one warp, on the shared words of
+// columns c-2..c+1 (mid + d * C is column c + d): the composed sources, the
+// gather and the cell's count.
+__device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
+                                         int* __restrict__ counts, const rps::Fills& fills,
+                                         const Geom& g, int r, int c, const int* mid,
+                                         unsigned* bal) {
+  const int lane = threadIdx.x & 31, C = g.C, nchunk = (C + 31) / 32;
+  const unsigned below = (1u << lane) - 1u;
+  const bool has_l = c >= 1, has_r = c <= g.gw - 2, has_l2 = c >= 2;
+  const auto moves = [](int m, int way) { return (m & 3) == way; };  // false for -1
 
-  bool live_out = false;
-  if (act) {
-    const bool adopted = (into_l && tot[5] + inc[3] - 1 < tot[6]) ||
-                         (into_r && inc[4] - 1 < tot[7]);
-    const bool keep_own = liveM && (!in_row || mkx == c || !adopted);
-    const int hrank = inc[2] - 1;
-    const size_t o = own_index(g, r, c, s);
-    if (keep_own) {
-      for_channels(g.k, [&](int ch) { out.p[ch][o] = mid[ch * plane + o]; });
-      live_out = true;
+  // Pass 1.  0 kg0 (column c-1's slot moves here), 1 kg1 (column c+1's),
+  // 2 dead, 3 into_l (moves to column c-1), 4 into_r, 5 column c-2's slot
+  // moves to column c-1, 6 dead in column c-1, 7 dead in column c+1.
+  int tot[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int q = 0; q < nchunk; ++q) {
+    const int s = q * 32 + lane;
+    const bool act = s < C;
+    const int m = act ? mid[s] : 0;
+    const int ml = act && has_l ? mid[s - C] : 0;
+    const int mr = act && has_r ? mid[s + C] : 0;
+    const int ml2 = act && has_l2 ? mid[s - 2 * C] : 0;
+    const bool p[8] = {moves(ml, kRight), moves(mr, kLeft), act && m < 0,
+                       has_l && moves(m, kLeft), has_r && moves(m, kRight),
+                       moves(ml2, kRight), ml < 0, mr < 0};
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const unsigned b = __ballot_sync(0xffffffffu, p[f]);
+      tot[f] += __popc(b);
+      if (f < kBallots && lane == f) bal[q * kBallots + f] = b;
+    }
+  }
+  __syncwarp();
+
+  // Pass 2: the composed sources and the gather.
+  const int n_left = tot[0], n_arr = tot[0] + tot[1];
+  const size_t o0 = (static_cast<size_t>(r - g.row0) * g.gw + c) * C;
+  int pre_d = 0, pre_l = 0, pre_r = 0, live = 0;
+  for (int q = 0; q < nchunk; ++q) {
+    const int s = q * 32 + lane;
+    const unsigned bd = bal[q * kBallots + 2], bl = bal[q * kBallots + 3],
+                   br = bal[q * kBallots + 4];
+    const bool dead = (bd >> lane) & 1u;
+    const int hrank = pre_d + __popc(bd & below);
+    const bool adopted =
+        (((bl >> lane) & 1u) && tot[5] + pre_l + __popc(bl & below) < tot[6]) ||
+        (((br >> lane) & 1u) && pre_r + __popc(br & below) < tot[7]);
+    pre_d += __popc(bd);
+    pre_l += __popc(bl);
+    pre_r += __popc(br);
+    const bool act = s < C;
+    int cd = -1;
+    if (act && !dead && !adopted) {
+      cd = mid[s] >> 2;
     } else if (dead && hrank < n_arr) {
-      const int w = src[hrank];
-      const size_t from = w < g.C ? own_index(g, r, c - 1, w)
-                                  : own_index(g, r, c + 1, w - g.C);
-      for_channels(g.k, [&](int ch) { out.p[ch][o] = mid[ch * plane + from]; });
-      live_out = true;
-    } else {
-      for_channels(g.k, [&](int ch) { out.p[ch][o] = fills.v[ch]; });
+      const bool from_l = hrank < n_left;
+      const int w = from_l ? nth_set(bal, hrank) : nth_set(bal + 1, hrank - n_left);
+      cd = from_l ? (mid[w - C] >> 2) - kColumnStep : (mid[w + C] >> 2) + kColumnStep;
     }
+    live += __popc(__ballot_sync(0xffffffffu, cd >= 0));
+    if (!act) continue;
+    const size_t o = o0 + s;
+    if (cd < 0) {
+      for_channels(g.k, [&](int ch) { out.p[ch][o] = fills.v[ch]; });
+      continue;
+    }
+    const int t = cd >> 10, dr = t % 3 - 1, dc = t / 3 - 1;
+    const size_t from = static_cast<size_t>(c + dc) * C + (cd & 1023);
+    float v[rps::kMaxChannels];
+    for_channels(g.k, [&](int ch) { v[ch] = __ldg(row_of(src, g, ch, r + dr) + from); });
+    for_channels(g.k, [&](int ch) { out.p[ch][o] = v[ch]; });
   }
-  const bool q[1] = {live_out};
-  int qi[1], qt[1];
-  rps::block_count<1>(q, qi, qt, scratch);
-  if (s == 0) counts[(r - g.row0) * g.gw + c] = qt[0];
+  if (lane == 0) counts[(r - g.row0) * g.gw + c] = live;
+  __syncwarp();  // the scratch is rewritten by the warp's next column
+}
+
+// Block (x, y): own columns [x T, x T + T) (those inside the grid) of own
+// row row0 + y, T = tile_cols(C) - 3.
+__global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes out,
+                                                           int* __restrict__ counts,
+                                                           rps::Fills fills, Geom g) {
+  extern __shared__ int smem[];
+  const int C = g.C, ncols = tile_cols(C), T = ncols - 3;
+  int* mid = smem;  // [ncols][C]: tile column j is grid column c0 - 2 + j
+  const int warp = threadIdx.x >> 5;
+  unsigned* bal_base = reinterpret_cast<unsigned*>(mid + ncols * C);
+  unsigned* bal = bal_base + warp * kBallots * ((C + 31) / 32);
+  const int r = g.row0 + blockIdx.y, c0 = blockIdx.x * T;
+  // The cuts this block uses, one thread each: t_j of kx for the tile's
+  // columns c0-2 .. c0+T+1 (each column's own and the next) and of ky for rows
+  // r-1, r, r+1.
+  float* cuts = reinterpret_cast<float*>(bal_base + kTileWarps * kBallots * ((C + 31) / 32));
+  if (threadIdx.x <= ncols) {
+    const int j = c0 - 2 + static_cast<int>(threadIdx.x);
+    if (j >= 1 && j < g.gw) cuts[threadIdx.x] = least_reaching(j, g.cell_w);
+  } else if (threadIdx.x <= ncols + 3) {
+    const int j = r - 2 + static_cast<int>(threadIdx.x) - ncols;
+    if (j >= 1 && j < g.gh) cuts[threadIdx.x] = least_reaching(j, g.cell_h);
+  }
+  __syncthreads();
+  const float* ycut = cuts + ncols + 1;  // rows r-1, r, r+1
+  const Cut ky_up = cut_of(r - 1, g.gh, ycut);
+  const Cuts k{cut_of(r, g.gh, ycut + 1), cut_of(r + 1, g.gh, ycut + 2), {}, {}, g.y_min, g.x_min};
+
+  for (int j = warp; j < ncols; j += kTileWarps) {
+    const int c = c0 - 2 + j;
+    if (c >= 0 && c < g.gw) column_y(src, g, r, c, ky_up, k, cuts + j, mid + j * C, bal);
+  }
+  __syncthreads();
+  for (int j = 2 + warp; j < 2 + T; j += kTileWarps) {
+    const int c = c0 - 2 + j;
+    if (c < g.gw) column_x(src, out, counts, fills, g, r, c, mid + j * C, bal);
+  }
 }
 
 }  // namespace
 
-// in_host: host array of k device pointers, each a [rows + in_off + 1, gw, C]
-// f32 plane (channels 0/1 are x/y), or [gh, gw, C] with in_off = 0 and
-// rows = gh (K1); out_host: k [rows, gw, C] planes; mid: [k, rows, gw, C] f32
-// scratch; counts: [rows*gw] i32.  gh is the whole grid's height; the launch
-// owns global rows [row0, row0 + rows).  fills[0] must be >= 0.5 * SENTINEL
-// (a filled slot is dead); the wrapper checks it.
-static int rebin(const float* const* in_host, float* mid, float* const* out_host,
-                 int* counts, const float* fills_host, int k, int gh, int gw, int C,
-                 int row0, int rows, int in_off, float x_min, float y_min, float cell_w,
-                 float cell_h, void* stream) {
-  if (k < 2 || k > rps::kMaxChannels || C < 1 || C > 1024 || rows < 1 || row0 < 0 ||
-      row0 + rows > gh || in_off < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  rps::Fills fills{};
-  InPlanes in{};
-  OutPlanes out{};
-  for (int i = 0; i < k; ++i) {
-    fills.v[i] = fills_host[i];
-    in.p[i] = in_host[i];
-    out.p[i] = out_host[i];
-  }
-  const Geom g{k, gh, gw, C, row0, rows, in_off, x_min, y_min, cell_w, cell_h};
-  const dim3 grid(gw, rows);
-  const int threads = rps::block_threads(C);
-  const size_t shmem = (8 * 32 + C) * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rebin_pass_y<<<grid, threads, shmem, st>>>(in, mid, fills, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rebin_pass_x<<<grid, threads, shmem, st>>>(mid, out, counts, fills, g);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // (Its arguments: the record struct below, common.cuh's rps::unpack.)
+// own: k device pointers, each a [rows, gw, C] f32 plane (channels 0/1 are
+// x/y); lo2: x/y of global row row0-2, lo1/hi1: every channel of rows row0-1
+// and row0+rows, each [gw, C] (K7; null for K1, rows = gh); out: k [rows, gw,
+// C] planes; counts: [rows*gw] i32.  gh is the whole grid's height; the
+// launch owns global rows [row0, row0 + rows).  fills[0] must be >= 0.5 *
+// SENTINEL (a filled slot is dead); the wrapper checks it.
 struct rps_rebin_args {
-  const float* in[8];
-  float* mid;
+  const float* own[8];
+  const float* lo2[2];
+  const float* lo1[8];
+  const float* hi1[8];
   float* out[8];
   int* counts;
   float fills[8];
-  int k, gh, gw, C, row0, rows, in_off;
+  int k, gh, gw, C, row0, rows;
   float x_min, y_min, cell_w, cell_h;
   void* stream;
 };
 
 extern "C" int rps_rebin(const void* packed, int size) {
-  rps_rebin_args r;
-  if (!rps::unpack(packed, size, &r)) return static_cast<int>(cudaErrorInvalidValue);
-  return rebin(r.in, r.mid, r.out, r.counts, r.fills, r.k, r.gh, r.gw, r.C, r.row0, r.rows,
-               r.in_off, r.x_min, r.y_min, r.cell_w, r.cell_h, r.stream);
+  rps_rebin_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.k < 2 || a.k > rps::kMaxChannels || a.C < 1 || a.C > kMaxC || a.rows < 1 ||
+      a.row0 < 0 || a.row0 + a.rows > a.gh || a.gw < 1 ||
+      static_cast<long long>(a.gh) * a.gw >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Src src{};
+  OutPlanes out{};
+  rps::Fills fills{};
+  for (int i = 0; i < a.k; ++i) {
+    src.own[i] = a.own[i];
+    src.lo1[i] = a.lo1[i];
+    src.hi1[i] = a.hi1[i];
+    out.p[i] = a.out[i];
+    fills.v[i] = a.fills[i];
+  }
+  src.lo2[0] = a.lo2[0];
+  src.lo2[1] = a.lo2[1];
+  const Geom g{a.k, a.gh, a.gw, a.C, a.row0, a.rows, a.x_min, a.y_min, a.cell_w, a.cell_h};
+  const int T = tile_cols(a.C) - 3;
+  const size_t shmem = tile_shmem(a.C);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rebin_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((a.gw + T - 1) / T, a.rows);
+  rebin_tile<<<grid, kTileThreads, shmem, static_cast<cudaStream_t>(a.stream)>>>(src, out,
+                                                                                a.counts,
+                                                                                fills, g);
+  return static_cast<int>(cudaGetLastError());
 }

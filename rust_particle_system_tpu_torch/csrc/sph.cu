@@ -1,7 +1,7 @@
 // K2 (density walk), K3 (fused pressure + viscosity walk with the frame
 // tail in its epilogue), K3b (the same walk with the raw-sum epilogue), and
-// K6 (the same three walks in the pair-packed block shape) over [gh, gw, C]
-// cell planes.
+// K6 (the same three walks on the pair-packed layout's planes) over
+// [gh, gw, C] cell planes.
 //
 // Replace rust_particle_system_tpu/ops/pallas/sph.py::_make_seg_kernel with
 // _density_update (via density_planes), with _force_update +
@@ -25,18 +25,17 @@
 //        (fx, fy - self, Sx - vx S, Sy - vy S).  Slots whose walk position is
 //        parked get zero sums (and the self term); the caller's tail restores
 //        or parks them.  K3 and K3b are one template over the epilogue.
-//   K6   the same outputs, in the same [gh, gw, C] planes, from blocks that
-//        each serve a PAIR of cells (2p, 2p+1) of one row.  The TPU packed the
-//        pair into one 128-lane row and read the half-shifted units B[p] and
-//        B[p+1] (cells 2p-1 .. 2p+2, rows r-1 .. r+1): 6 neighbour tiles per own
-//        tile instead of 9.  Here the block stages the live slots of that 3x4
-//        window once, column by column, so that each own cell's 3x3 window is
-//        one contiguous range of it: cell 2p walks columns 2p-1 .. 2p+1, cell
-//        2p+1 walks 2p .. 2p+2.  The TPU also walked the fourth column; those
-//        cells are at least a cell width (>= h) away, so they add exact zeros,
-//        and skipping them keeps the pair count equal to the classic walk's
-//        (a third fewer than the full window).  Each neighbour cell is staged
-//        by 6 blocks instead of 9.
+//   K6   the same three walks on the pair-packed layout's planes (C=64 on
+//        the TPU, where two cells filled one 128-lane row and the kernel read
+//        the half-shifted units B[p] and B[p+1]: cells 2p-1 .. 2p+2 of rows
+//        r-1 .. r+1).  The card has no lanes to fill: K6 launches the strip
+//        walk below on those planes.  A strip starts on an even column
+//        (kStripCells is even), so it holds whole pairs, and each own cell
+//        walks its 3x3 window in the order the pair window gave it (columns
+//        left to right, each column's rows r-1 .. r+1, slots in order; the
+//        TPU's fourth column is at least a cell width (>= h) away and adds
+//        exact zeros).  So K6's outputs are K2's, K3's and K3b's bit for bit
+//        on the same planes.
 //
 // Own rows.  A launch walks the own rows [r0, r0 + R) of neighbour planes of
 // gh rows: r0 = 0 and R = gh on the whole grid, or r0 = 1 and R = gh - 2 on a
@@ -50,13 +49,14 @@
 // 3.49e8 live window pairs at ~29 instructions a force pair and about half
 // that a density pair; the planes are read about three times).  The TPU
 // evaluated all C x 9C slot pairs as dense vector tiles, lane-padded to 128,
-// gated by 32-slot chunks.  Both block shapes here stage only the LIVE
-// neighbour slots in shared memory (ranked by ballots), so a pair loop runs
-// over the live count, not 9C.
+// gated by 32-slot chunks.  The walk here stages only the LIVE neighbour
+// slots in shared memory (ranked by ballots), so a pair loop runs over the
+// live count, not 9C.
 //
-// K2, K3 and K3b: the strip walk.  A block of kWalkThreads threads serves a
-// strip of kStripCells adjacent own cells of one row (fixed here: a strip of
-// 6 holds ~232 live particles at the 1M density, one round of 256 threads;
+// The strip walk (K2, K3, K3b, and K6 on the pair-packed planes).  A block
+// of kWalkThreads threads serves a strip of kStripCells adjacent own cells of
+// one row (fixed here: a strip of 6 holds ~232 live particles at the 1M
+// density, one round of 256 threads;
 // the launch computes its own shared bytes, and the host checks only C).
 // Against what bounded a first design that gave each cell a block of C
 // threads, thread s owning slot s:
@@ -78,8 +78,8 @@
 //   3. The 3 x (W+2) window is counted once: one warp ballot per 32-slot
 //      chunk, then one scan over the chunks' counts (no chain of nine
 //      block-wide counts).  It is ordered column-major (column outer, row
-//      inner, as K6's pair block orders its 3x4), so own cell k's 3x3 window
-//      is the contiguous range [col[k], col[k + 3]).  Each neighbour cell is
+//      inner, as the TPU's pair window orders its 3x4), so own cell k's 3x3
+//      window is the contiguous range [col[k], col[k + 3]).  Each neighbour cell is
 //      staged by 3 row blocks (plus the strips' edge columns), not 9.
 //   4. Staged neighbours are packed: (px, py, P1, NPn) as a float4 and
 //      (vx, vy) as a float2 (K3), (px, py) as a float2 (K2), so a force pair
@@ -105,7 +105,7 @@ namespace {
 using rps::kLiveBelow;
 
 // ---------------------------------------------------------------------------
-// The pair bodies and the force epilogue, shared by the strip walk and K6.
+// The pair bodies and the force epilogue.
 
 struct ForceScalars {
   float h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp;
@@ -224,9 +224,9 @@ __device__ __forceinline__ void force_epilogue(const ForcePlanes& p, const Force
 }
 
 // ---------------------------------------------------------------------------
-// The strip walk (K2, K3, K3b).
+// The strip walk.
 
-constexpr int kStripCells = 6;    // W: own cells a block serves
+constexpr int kStripCells = 6;    // W: own cells a block serves (even: whole pairs for K6)
 constexpr int kWalkThreads = 256;  // threads a block
 constexpr int kWalkTile = 1024;    // staged neighbours a tile holds
 constexpr int kMaxC = 1024;        // the largest C the strip walks take
@@ -239,6 +239,7 @@ constexpr size_t strip_shmem(size_t entry, size_t C) {
   return kWalkTile * entry + 4 * (2 * 3 * (kStripCells + 2) * ((C + 31) / 32) + kStripCells + 2);
 }
 static_assert(strip_shmem(24, kMaxC) <= 232448, "a strip block fits one H100 block's shared memory");
+static_assert(kStripCells % 2 == 0, "a strip holds whole cell pairs (K6)");
 
 // The strip's geometry and its shared arrays (W = kStripCells).
 struct Strip {
@@ -538,121 +539,6 @@ cudaError_t launch_strips(const Walk& w, int gh, int r0, int R, int gw, int C, v
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K6: the pair block.  Cells (r, 2p) and (r, 2p + 1), p = blockIdx.x and
-// r = r0 + blockIdx.y; thread t owns slot t % C of cell 2p + t / C (t >= 2C:
-// ballots only).  The live slots of columns 2p-1 .. 2p+2, rows r-1 .. r+1 are
-// staged column-major (column outer, row inner), two cells per round; col[k]
-// is where window column k starts, so cell 2p + h's 3x3 window is the range
-// [col[h], col[h + 3]).  An odd gw leaves the last pair's second cell out of
-// the grid: it is staged as empty and owns nothing, like the TPU's dead
-// phantom cell.
-
-constexpr int kPairCells = 12;  // the 3x4 window
-
-// A thread's own slot and the staged neighbour range it walks.
-struct Own {
-  size_t o;     // own slot offset in the neighbour planes
-  size_t q;     // own slot offset in the own-side planes and the outputs
-  int lo, hi;   // staged neighbours [lo, hi)
-  bool valid;   // the thread owns a slot of an in-grid cell
-};
-
-template <int NCH>
-__device__ Own stage_pair(const float* const (&src)[NCH], float* const (&dst)[NCH],
-                          int* scratch, int gh, int r0, int gw, int C) {
-  const int p = blockIdx.x, r = r0 + blockIdx.y, t = threadIdx.x;
-  const int half = t / C, s = t - half * C;
-  int col[5];
-  col[0] = 0;
-  int m = 0;
-  for (int k = 0; k < 12; k += 2) {
-    const int cell = k + half;  // window cell this thread loads this round
-    const int rr = r - 1 + cell % 3, cc = 2 * p - 1 + cell / 3;
-    bool live = false;
-    size_t o = 0;
-    if (half < 2 && rr >= 0 && rr < gh && cc >= 0 && cc < gw) {
-      o = (static_cast<size_t>(rr) * gw + cc) * C + s;
-      live = src[0][o] < kLiveBelow;
-    }
-    // Threads of cell k precede those of cell k + 1, so one block-wide
-    // prefix places both cells; the second count splits them.
-    const bool pr[2] = {live, live && half == 0};
-    int inc[2], tot[2];
-    rps::block_count<2>(pr, inc, tot, scratch);
-    if (live) {
-#pragma unroll
-      for (int ch = 0; ch < NCH; ++ch) dst[ch][m + inc[0] - 1] = src[ch][o];
-    }
-    if (k % 3 == 2) col[k / 3 + 1] = m + tot[1];  // cell k ends a column
-    if (k % 3 == 1) col[k / 3 + 1] = m + tot[0];  // cell k + 1 ends a column
-    m += tot[0];
-  }
-  __syncthreads();
-  const int own = half < 2 ? half : 1;
-  const int c = 2 * p + own;
-  return {(static_cast<size_t>(r) * gw + c) * C + s,
-          (static_cast<size_t>(r - r0) * gw + c) * C + s, col[own], col[own + 3],
-          half < 2 && c < gw};
-}
-
-__global__ void pair_density_kernel(const float* __restrict__ px,
-                                    const float* __restrict__ py, float* __restrict__ rho,
-                                    float* __restrict__ rhon, int gh, int r0, int gw, int C,
-                                    float h, float dnorm, float nnorm) {
-  extern __shared__ float sm[];
-  const int cap = kPairCells * C;
-  float* const dst[2] = {sm, sm + cap};
-  int* scratch = reinterpret_cast<int*>(sm + 2 * cap);
-  const float* const src[2] = {px, py};
-  const Own w = stage_pair<2>(src, dst, scratch, gh, r0, gw, C);
-  if (!w.valid) return;
-
-  const size_t o = w.o, q = w.q;
-  const float ox = px[o], oy = py[o];
-  if (!(ox < kLiveBelow)) {
-    rho[q] = 0.0f;
-    rhon[q] = 0.0f;
-    return;
-  }
-  float s2 = 0.0f, s3 = 0.0f;
-  for (int j = w.lo; j < w.hi; ++j) density_pair(ox, oy, dst[0][j], dst[1][j], h, s2, s3);
-  rho[q] = dnorm * s2;
-  rhon[q] = nnorm * s3;
-}
-
-template <bool kTail>
-__global__ void pair_force_kernel(ForcePlanes p, int gh, int r0, int gw, int C,
-                                  ForceScalars k) {
-  extern __shared__ float sm[];
-  const int cap = kPairCells * C;
-  float* const dst[6] = {sm, sm + cap, sm + 2 * cap, sm + 3 * cap,
-                         sm + 4 * cap, sm + 5 * cap};
-  int* scratch = reinterpret_cast<int*>(sm + 6 * cap);
-  const float* const src[6] = {p.px, p.py, p.P1, p.NPn, p.vx, p.vy};
-  const Own w = stage_pair<6>(src, dst, scratch, gh, r0, gw, C);
-  if (!w.valid) return;
-
-  const bool walk_live = p.px[w.o] < kLiveBelow;
-  ForceSums a{};
-  if (walk_live) {
-    const ForceOwn own{p.px[w.o], p.py[w.o], p.P1[w.o], p.NPo[w.q]};
-    const float hh = k.h * k.h;
-    for (int j = w.lo; j < w.hi; ++j)
-      force_pair(own, make_float4(dst[0][j], dst[1][j], dst[2][j], dst[3][j]),
-                 make_float2(dst[4][j], dst[5][j]), k.h, hh, k.eps2, a);
-  }
-  force_epilogue<kTail>(p, k, a, walk_live, w.o, w.q);
-}
-
-// Grid and block of a pair walk: one block per cell pair, 2C threads.
-cudaError_t pair_shape(int gh, int r0, int R, int gw, int C, dim3* grid, int* threads) {
-  if (C < 1 || C > 512 || r0 < 0 || R < 1 || r0 + R > gh) return cudaErrorInvalidValue;
-  *grid = dim3((gw + 1) / 2, R);
-  *threads = rps::block_threads(2 * C);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Each entry takes its arguments as the record struct rps_<entry>_args
@@ -736,100 +622,20 @@ extern "C" int rps_force(const void* packed, int size) {
       launch_strips(ForceWalk<false>{p, k}, a.gh, a.r0, a.R, a.gw, a.C, a.stream));
 }
 
-// K6: the density, fused and raw walks in the pair block shape (the same
-// planes and outputs as rps_density, rps_force_integrated and rps_force).
-struct rps_pair_density_args {
-  const float* px;
-  const float* py;
-  float* rho;
-  float* rhon;
-  int gh, r0, R, gw, C;
-  float h, dnorm, nnorm;
-  void* stream;
-};
+// K6: the density, fused and raw walks on the pair-packed layout's planes:
+// the strip walks above, on the same records.
+using rps_pair_density_args = rps_density_args;
+using rps_pair_force_integrated_args = rps_force_integrated_args;
+using rps_pair_force_args = rps_force_args;
 
 extern "C" int rps_pair_density(const void* packed, int size) {
-  rps_pair_density_args a;
-  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  int threads;
-  cudaError_t err = pair_shape(a.gh, a.r0, a.R, a.gw, a.C, &grid, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t shmem = 2 * kPairCells * static_cast<size_t>(a.C) * sizeof(float) +
-                       64 * sizeof(int);
-  err = set_shmem(reinterpret_cast<const void*>(pair_density_kernel), shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pair_density_kernel<<<grid, threads, shmem, static_cast<cudaStream_t>(a.stream)>>>(
-      a.px, a.py, a.rho, a.rhon, a.gh, a.r0, a.gw, a.C, a.h, a.dnorm, a.nnorm);
-  return static_cast<int>(cudaGetLastError());
+  return rps_density(packed, size);
 }
-
-template <bool kTail>
-static int pair_force_launch(const ForcePlanes& p, int gh, int r0, int R, int gw, int C,
-                             const ForceScalars& k, void* stream) {
-  dim3 grid;
-  int threads;
-  cudaError_t err = pair_shape(gh, r0, R, gw, C, &grid, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t shmem = 6 * kPairCells * static_cast<size_t>(C) * sizeof(float) +
-                       64 * sizeof(int);
-  err = set_shmem(reinterpret_cast<const void*>(pair_force_kernel<kTail>), shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pair_force_kernel<kTail><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      p, gh, r0, gw, C, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-struct rps_pair_force_integrated_args {
-  const float* px;
-  const float* py;
-  const float* P1;
-  const float* NPn;
-  const float* vx;
-  const float* vy;
-  const float* NPo;
-  const float* npx;
-  const float* npy;
-  float* out_px;
-  float* out_py;
-  float* out_vx;
-  float* out_vy;
-  int gh, r0, R, gw, C;
-  float h, eps2, dt, vscale, x_min, x_max, y_min, y_max, damp;
-  void* stream;
-};
 
 extern "C" int rps_pair_force_integrated(const void* packed, int size) {
-  rps_pair_force_integrated_args a;
-  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
-  const ForcePlanes p{a.px, a.py, a.P1, a.NPn, a.vx, a.vy, a.NPo, a.npx, a.npy,
-                      a.out_px, a.out_py, a.out_vx, a.out_vy};
-  const ForceScalars k{a.h, a.eps2, a.dt, a.vscale, a.x_min, a.x_max, a.y_min, a.y_max, a.damp};
-  return pair_force_launch<true>(p, a.gh, a.r0, a.R, a.gw, a.C, k, a.stream);
+  return rps_force_integrated(packed, size);
 }
 
-struct rps_pair_force_args {
-  const float* px;
-  const float* py;
-  const float* P1;
-  const float* NPn;
-  const float* vx;
-  const float* vy;
-  const float* NPo;
-  float* fx;
-  float* fy;
-  float* fvx;
-  float* fvy;
-  int gh, r0, R, gw, C;
-  float h, eps2;
-  void* stream;
-};
-
 extern "C" int rps_pair_force(const void* packed, int size) {
-  rps_pair_force_args a;
-  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
-  const ForcePlanes p{a.px, a.py, a.P1, a.NPn, a.vx, a.vy, a.NPo, nullptr, nullptr,
-                      a.fx, a.fy, a.fvx, a.fvy};
-  const ForceScalars k{a.h, a.eps2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return pair_force_launch<false>(p, a.gh, a.r0, a.R, a.gw, a.C, k, a.stream);
+  return rps_force(packed, size);
 }

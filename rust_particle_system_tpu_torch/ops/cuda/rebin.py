@@ -5,10 +5,10 @@ of ``rebin_planes``:
 
 * variant 6 (default), the lossless row-fused hole-fill: kernel K1
   (``csrc/rebin.cu``) replaces the Pallas ``_make_kernel_v6`` on the whole grid
-  (:func:`rebin_planes`, JAX ``_rebin_v6``); kernel K7, the same CUDA kernels
-  on one band's slab with its ghost rows and global row offset, replaces it as
-  driven by ``_rebin_v6_band`` (:func:`rebin_planes_band`, for the
-  band-sharded mesh);
+  (:func:`rebin_planes`, JAX ``_rebin_v6``); kernel K7, the same CUDA kernel
+  on one band's slab, its ghost rows read where they lie and its rows tested
+  in global rows, replaces it as driven by ``_rebin_v6_band``
+  (:func:`rebin_planes_band`, for the band-sharded mesh);
 * variants 4 (lossy) and 5 (lossless, bit-identical to 6), the separable
   hole-fill: two passes of kernel K9 (``csrc/rebin_pass.cu``,
   :func:`hole_fill_pass`, JAX ``_make_kernel_v4`` driven by
@@ -28,11 +28,14 @@ live totals after both passes.  Variant 4 fills every slot that does not stay
 and drops what finds no hole; variants 2/3 compact each cell's candidates to
 its low slots and count them (counts may exceed C: the overflow is dropped).
 
-K1 is memory-bound on the H100 (two passes of ~10 plane reads and 5 writes per
-slot); its ranks come from warp ballots and popcounts instead of the TPU's
-triangular and one-hot matmuls, and its two passes are two launches because a
-whole grid row (548 KB at the main-path shape) exceeds a block's shared memory.
-K9 and K12 rank the same way, one block per destination cell.
+K1 is one launch: a block owns a few adjacent columns of one row, keeps both
+passes' decisions in shared memory (pass Y's result as one word a slot: the
+input slot it holds and its class for pass X, never the values), and moves
+each value once, from the input planes to its final slot; its ranks come
+from warp ballots and popcounts instead of the TPU's triangular and one-hot
+matmuls.  On the H100 its ranking's instructions and its reads of x/y from L2
+bound it, not device memory (``profile_rebin.py``).  K9 and K12 rank the same
+way, one block per destination cell.
 """
 
 from __future__ import annotations
@@ -179,17 +182,6 @@ def _rebin_rows_plain(ext, spec: GridSpec, fills: tuple, row0: int):
     return out, counts
 
 
-def _band_slab(planes, fills: tuple, lo2, lo1, hi1):
-    """Per channel, the band's ``[R, gw, C]`` slab extended to ``[R + 3, gw, C]``:
-    global rows row0-2 (x/y from ``lo2``; the value channels' row is never
-    read and holds the fill), row0-1 (``lo1``), the slab, row0+R (``hi1``)."""
-    out = []
-    for c, (p, f) in enumerate(zip(planes, fills)):
-        low = lo2[c] if c < 2 else torch.full_like(lo1[c], f)
-        out.append(torch.cat([low[None], lo1[c][None], p, hi1[c][None]]))
-    return out
-
-
 def rebin_planes_plain(planes, spec: GridSpec, fills=None, variant: int = 6):
     """Plain PyTorch version of :func:`rebin_planes`: K1's over all cells at
     once (variant 6), K9's two passes with the retention merges (4, 5), K12's
@@ -211,8 +203,13 @@ def rebin_planes_band_plain(planes, spec: GridSpec, fills, row0: int, lo2, lo1, 
     """Plain PyTorch version of K7: K1's logic on the band's slab extended by
     its ghost rows, in global rows."""
     fills = _fills(planes, fills)
-    return _rebin_rows_plain(_band_slab(planes, fills, lo2, lo1, hi1), spec, fills,
-                             row0)
+    # Per channel, the slab extended by its ghost rows: global rows row0-2
+    # (x/y; the value channels' row is never read and holds the fill), row0-1,
+    # the slab, row0+R.
+    ext = [torch.cat([(lo2[c] if c < 2 else torch.full_like(lo1[c], f))[None],
+                      lo1[c][None], p, hi1[c][None]])
+           for c, (p, f) in enumerate(zip(planes, fills))]
+    return _rebin_rows_plain(ext, spec, fills, row0)
 
 
 # ---------------- K9: one separable hole-fill pass (variants 4 and 5) ----------------
@@ -346,21 +343,29 @@ def _ptrs(tensors) -> tuple:
     return _lib.pad8([t.data_ptr() for t in tensors])
 
 
-def _rebin_launch(inputs, spec: GridSpec, fills: tuple, row0: int, rows: int,
-                  in_off: int):
-    """Launch the rebin kernels on the own global rows [row0, row0 + rows) of
-    ``inputs`` (global row r at input row r - row0 + in_off)."""
-    k = len(inputs)
+def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None):
+    """Launch the rebin kernel on the ``[rows, gw, C]`` planes of global rows
+    [row0, row0 + rows); ``ghosts``: K7's ghost rows ``(lo2, lo1, hi1)``, each
+    a ``[gw, C]`` row (None for K1 on the whole grid, whose ghost rows lie
+    outside it)."""
+    k = len(planes)
     if not 2 <= k <= 8:
         raise ValueError("the rebin kernel takes 2..8 channels")
-    _lib.require_cuda_planes(*inputs)
-    gw, C = spec.gw, spec.capacity
-    dev = inputs[0].device
-    mid = torch.empty(k, rows, gw, C, dtype=torch.float32, device=dev)
-    out = _lib.empty_f32(k, (rows, gw, C), inputs[0])
-    counts = torch.empty(rows * gw, dtype=torch.int32, device=dev)
-    _rebin_kernel(*_ptrs(inputs), mid.data_ptr(), *_ptrs(out), counts.data_ptr(),
-                  *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, in_off, spec.x_min,
+    _lib.require_cuda_planes(*planes)
+    rows, gw, C = planes[0].shape
+    if ghosts is None:
+        ghost_ptrs = (0,) * (2 + 2 * _lib.ARRAY)
+    else:
+        ghost_rows = (*ghosts[0], *ghosts[1], *ghosts[2])  # lo2 (x, y), lo1, hi1
+        _lib.require_cuda(planes[0], *ghost_rows)
+        if any(t.shape != (gw, C) for t in ghost_rows):
+            raise ValueError(f"ghost rows must be [{gw}, {C}] each")
+        ptrs = [t.data_ptr() for t in ghost_rows]
+        ghost_ptrs = (*ptrs[:2], *_lib.pad8(ptrs[2:2 + k]), *_lib.pad8(ptrs[2 + k:]))
+    out = _lib.empty_f32(k, planes[0].shape, planes[0])
+    counts = torch.empty(rows * gw, dtype=torch.int32, device=planes[0].device)
+    _rebin_kernel(*_ptrs(planes), *ghost_ptrs, *_ptrs(out), counts.data_ptr(),
+                  *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, spec.x_min,
                   spec.y_min, spec.cell_width, spec.cell_size)
     return out, counts
 
@@ -479,7 +484,7 @@ def rebin_planes(planes, spec: GridSpec, fills=None, variant: int = 6):
         return rebin_compact(planes, spec, fills)
     if variant in (4, 5):
         return _rebin_separable(planes, spec, fills, variant == 5, hole_fill_pass)
-    out = _rebin_launch(planes, spec, fills, 0, spec.gh, 0)
+    out = _rebin_launch(planes, spec, fills, 0)
     rebin_planes.launches += 1
     return out
 
@@ -491,7 +496,8 @@ def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
     """Kernel K7: :func:`rebin_planes` on one band's ``[R, gw, C]`` slab of the
     grid ``spec``, whose first row is global row ``row0``.
 
-    Ghost rows, each ``[gw, C]``: ``lo2`` (x, y) at global row row0-2, ``lo1``
+    Ghost rows, each ``[gw, C]`` (contiguous, on the slab's device: the kernel
+    reads them where they lie): ``lo2`` (x, y) at global row row0-2, ``lo1``
     (every channel) at row0-1, ``hi1`` (every channel) at row0+R.  Returns the R
     own rows and ``[R*gw]`` counts, bit-identical to those rows of K1 on the
     whole grid.  Ghost rows outside the grid may hold anything: no decision
@@ -505,8 +511,7 @@ def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
     fills = _fills(planes, fills)
     if _lib.dispatch(planes[0]) == "plain":
         return rebin_planes_band_plain(planes, spec, fills, row0, lo2, lo1, hi1)
-    out = _rebin_launch(_band_slab(planes, fills, lo2, lo1, hi1), spec, fills, row0,
-                        R, 2)
+    out = _rebin_launch(planes, spec, fills, row0, (lo2, lo1, hi1))
     rebin_planes_band.launches += 1
     return out
 

@@ -17,10 +17,11 @@ one-cell-per-slot-row layout and the pair-packed one:
   epilogue (fx, fy, fvx, fvy), for the unfused tail (``fuse_tail=False``).
 * :func:`density_pairs`, :func:`force_pairs_integrated`, :func:`force_pairs` —
   kernel K6, replacing ``_make_seg_kernel`` with ``n_dx=2`` (the pair-packed
-  layout, ``sph_step.py:95-153``): the same three walks and outputs, from
-  blocks that each serve two adjacent cells of a row.  Their plain versions
-  walk the window the TPU walked, B[p] and B[p+1] (cells 2p-1 .. 2p+2, rows
-  r-1 .. r+1), whose extra column adds exact zeros.
+  layout, ``sph_step.py:95-153``): the same three walks and outputs, launched
+  as the strip walks of K2/K3/K3b on the pair-packed planes (a strip holds
+  whole pairs), so their outputs are K2's/K3's/K3b's bit for bit.  Their
+  plain versions walk the window the TPU walked, B[p] and B[p+1] (cells
+  2p-1 .. 2p+2, rows r-1 .. r+1), whose extra column adds exact zeros.
 
 Ghost rows: with ``ghost=True`` the neighbour-side planes are a band's slab
 with one ghost row on each side (``[R + 2, gw, C]``, the rows of the
@@ -37,9 +38,9 @@ never read back).
 The walks are arithmetic-bound on the H100 (an rsqrt per force pair).  The
 kernels stage only the live neighbour slots in shared memory, so a pair loop
 runs over live neighbours instead of the TPU's dense, lane-padded 9C window.
-K2, K3 and K3b give a thread to each live particle of a strip of cells of one
-row (the strip, the block and the tile of staged neighbours are fixed in
-``csrc/sph.cu``); K6 gives a block to each pair of cells.  The plain versions
+The walks give a thread to each live particle of a strip of cells of one row
+(the strip, the block and the tile of staged neighbours are fixed in
+``csrc/sph.cu``).  The plain versions
 below evaluate the dense window in row chunks so that they fit in device
 memory at the main-path size.
 """
@@ -60,7 +61,7 @@ EPS2 = float(np.float32(EPS_DIST) ** 2)  # float32(1e-4)^2 in f32, as JAX forms 
 # Plain versions: pair elements per row chunk (about 128 MB per f32 temporary).
 PLAIN_CHUNK_ELEMS = 1 << 25
 
-MAX_CAPACITY = 1024  # the largest C the strip walks take (csrc/sph.cu::kMaxC)
+MAX_CAPACITY = 1024  # the largest C the walks take (csrc/sph.cu::kMaxC)
 
 
 def _live(x):
@@ -166,15 +167,14 @@ _pair_force_integrated = _lib.kernel("rps_pair_force_integrated")
 _pair_force = _lib.kernel("rps_pair_force")
 
 
-def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars, strips: bool = True):
+def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars):
     """Launch a walk kernel: neighbour-side planes ``nbr`` ``[gh, gw, C]``
     (with a ghost row on each side if ``ghost``), own-side planes ``own`` (their
     shapes checked by :func:`_check_shapes`) and ``n_out`` new output planes
-    ``[R, gw, C]``, then the grid shape and ``scalars`` by value.  A strip
-    walk (not K6's pair walks, ``strips=False``) raises ValueError for a C
-    outside 1..MAX_CAPACITY."""
+    ``[R, gw, C]``, then the grid shape and ``scalars`` by value.  Raises
+    ValueError for a C outside 1..MAX_CAPACITY."""
     gh, gw, C = nbr[0].shape
-    if strips and not 1 <= C <= MAX_CAPACITY:
+    if not 1 <= C <= MAX_CAPACITY:
         raise ValueError(f"the strip walks take 1 <= C <= {MAX_CAPACITY} slots a cell, got {C}")
     _lib.require_cuda(*nbr, *own)
     r0, r1 = _own_rows(gh, ghost)
@@ -212,7 +212,7 @@ def density_pairs(px, py, params: SimParams, ghost: bool = False):
     _check_shapes((px, py), (), ghost)
     if _lib.dispatch(px) == "plain":
         return density_planes_plain(px, py, *scal, pair=True, ghost=ghost)
-    out = _launch(_pair_density, (px, py), (), 2, ghost, *scal, strips=False)
+    out = _launch(_pair_density, (px, py), (), 2, ghost, *scal)
     density_pairs.launches += 1
     return out
 
@@ -368,7 +368,7 @@ def force_pairs_integrated(px, py, P1, NPn, vx, vy, NPo, npx, npy,
         return force_planes_integrated_plain(px, py, P1, NPn, vx, vy, NPo, npx, npy,
                                              scal, pair=True, ghost=ghost)
     out = _launch(_pair_force_integrated, (px, py, P1, NPn, vx, vy), (NPo, npx, npy),
-                  4, ghost, *scal, strips=False)
+                  4, ghost, *scal)
     force_pairs_integrated.launches += 1
     return out
 
@@ -401,8 +401,7 @@ def force_pairs(px, py, P1, NPn, vx, vy, NPo, params: SimParams, ghost: bool = F
     if _lib.dispatch(px) == "plain":
         return force_planes_plain(px, py, P1, NPn, vx, vy, NPo, scal, pair=True,
                                   ghost=ghost)
-    out = _launch(_pair_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2],
-                  strips=False)
+    out = _launch(_pair_force, (px, py, P1, NPn, vx, vy), (NPo,), 4, ghost, *scal[:2])
     force_pairs.launches += 1
     return out
 
