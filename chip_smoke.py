@@ -31,9 +31,16 @@ line each:
      1M state with and without forced deferrals and on the strip walks'
      edges (a width that is not a multiple of the strip, cells with all C
      slots live, an empty strip beside air rows, C = 32, 64, 40 and 1024);
-     the unfused tail (K3b) against the fused one (K3); K4 at rtol/atol 1e-4 on
-     the 1080p image of the stepped state (sum rule, given colours, radius 2)
-     and at a geometry the JAX package sends to its v1 rasterizer (K10); K6's
+     the unfused tail (K3b) against the fused one (K3); K4, the plane render
+     (world planes in, image out), on the 1080p image of the stepped state,
+     the 50k scene and a geometry the JAX package sends to its v1 rasterizer
+     (K10): its accumulator epilogue against the plain accumulators at
+     rtol/atol 1e-4, its image bit-equal to those accumulators through the
+     plain sum rule and resolve and within rtol/atol 1e-4 of the whole plain
+     composition, two launches bit-equal; in the three colour modes (the
+     ramp, white, given), radius 2, clamp_drift off, centres drifted past the
+     margin, air rows and empty cells, and 4 bands' accumulators (the
+     sharded frame's) summing to the whole state's; K6's
      three walks on a 1M uniform pair-packed state (C=64, the JAX package's
      headline configuration, bench.py:387-389) with forced deferrals, at C=32
      and on an odd-width grid, and bit-equal to K2/K3/K3b on the same C=64
@@ -69,6 +76,9 @@ line each:
             finite, in bounds, the y centre of mass falls; sim.render() is a
             finite 1080p image; 10 model.step_and_render frames leave the
             state bit-equal to plane_step's;
+     frame_render  the render part of plane_frame: 2 frames against 2 of
+            plane_step by torch.profiler, one K4 launch a frame and no other
+            device row; then K4 launched twice by 2 frames;
      cli    runtime.cli.main(... --render build/chip_smoke_50k.png --stats),
             the PNG equal to the scene's image;
      unfused  plane_frame(fuse_tail=False) frames (K3b);
@@ -124,9 +134,10 @@ line each:
      time modes in one call: A, A+B, A+B+C and end to end by events, each
      stage's device time by the profiler, beside the production walks K2 +
      K3 on the same planes); the host-time line: host microseconds per call
-     of the K1, K2, K3, K4, K13a and K13c wrappers and of torch.mul and
-     torch.matmul, HOST_CALLS calls enqueued with no sync between them,
-     timed by the host clock, then one sync (the median of 5 runs).
+     of the K1, K2, K3, K13a and K13c wrappers, of the render
+     (render_plane_state: K4) and of torch.mul and torch.matmul, HOST_CALLS
+     calls enqueued with no sync between them, timed by the host clock,
+     then one sync (the median of 5 runs).
 
 Each kernel's line holds its time beside its bound: the larger of the bytes it
 must move over the H100's HBM rate and the operations this run's data needs
@@ -138,8 +149,10 @@ before the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -189,6 +202,17 @@ def bound(nbytes: float, ops: float, ops_rate: float = FP32_OPS_S) -> tuple:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_sectors(live) -> int:
+    """Bytes of the 32-byte sectors (8 float32 slots) of a contiguous plane
+    that hold a slot of ``live``: what reading that plane at the live slots
+    alone moves."""
+    import torch
+
+    flat = live.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    return 32 * int(flat.reshape(-1, 8).any(1).sum())
 
 
 def window_pairs(walk_px) -> int:
@@ -382,7 +406,8 @@ HOST_CALLS = 200  # calls enqueued per host-time round (K3 at 1M: ~0.35 s queued
 
 def host_calls() -> dict:
     """The wrappers of the host-time line on their main-path inputs (the 1M
-    uniform C=128 state one live frame in; K4 its 1080p image, sum rule; K13a
+    uniform C=128 state one live frame in; the render, K4 and whatever a
+    checkout runs around it, through ``render_plane_state`` at 1080p; K13a
     and K13c the probes' inputs), with ``torch.mul`` on K13c's input beside
     them.  Only names the port has had since its probes, so the parent of a
     change can be timed by the same code."""
@@ -396,8 +421,6 @@ def host_calls() -> dict:
         density_planes, force_planes_integrated, pressure_terms)
     from rust_particle_system_tpu_torch.ops.grid import GridSpec
     from rust_particle_system_tpu_torch.render import RenderSpec
-    from rust_particle_system_tpu_torch.render.splat_planes import (
-        drifted_patch_margin, raster_inputs, raster_planes)
     from rust_particle_system_tpu_torch.tools import toolchain_smoke as smoke
 
     spec = GridSpec.from_bounds(BOUNDS, 9.0, 128)
@@ -410,15 +433,13 @@ def host_calls() -> dict:
     P1, NPo, NPn = pressure_terms(*density_planes(wx, wy, params), params)
     fargs = (wx, wy, P1, NPn, nvx, nvy, NPo, npx, npy)
     rs = RenderSpec()
-    k4 = raster_inputs(ps.px, ps.py, ps.vx, ps.vy, ps.live, params.particle_size,
-                       params.max_energy, bounds_static=BOUNDS, grid_spec=spec, render_spec=rs,
-                       margin=drifted_patch_margin(spec, rs, BOUNDS), color_sum=1.0)
     da, db = (torch.from_numpy(m).cuda() for m in smoke.dot_inputs())
     xid = torch.from_numpy(smoke.ids_inputs()).cuda()
     return {"K1": lambda: rebin_planes(rin, spec),
             "K2": lambda: density_planes(wx, wy, params),
             "K3": lambda: force_planes_integrated(*fargs, params),
-            "K4": lambda: raster_planes(*k4, True),
+            "render (K4)": lambda: R.render_plane_state(ps, params, spec, rs,
+                                                        bounds_static=BOUNDS),
             "K13a": lambda: K13.dot_f32(da, db),
             "K13c": lambda: K13.copy_ids(xid),
             "torch.mul": lambda: torch.mul(xid, 1.0),
@@ -697,11 +718,12 @@ def main() -> int:
     from rust_particle_system_tpu_torch.ops.grid_step import grid_physics, grid_step
     from rust_particle_system_tpu_torch.ops.reference_step import reference_step
     from rust_particle_system_tpu_torch.parallel import make_shard_spec
-    from rust_particle_system_tpu_torch.render import RenderSpec, splat, to_srgb_u8
+    from rust_particle_system_tpu_torch.render import RenderSpec, splat, splat_resolve, to_srgb_u8
     from rust_particle_system_tpu_torch.render.splat_cells import (
         raster_cells, raster_cells_inputs, raster_cells_plain, splat_cells, splat_cells_plain)
     from rust_particle_system_tpu_torch.render.splat_planes import (
-        FAR, drifted_patch_margin, raster_inputs, raster_planes, raster_planes_plain)
+        BLACK, WHITE, accumulators, drifted_patch_margin, raster_inputs, raster_planes,
+        raster_planes_composed, raster_planes_plain, render_geometry)
     from rust_particle_system_tpu_torch.ops.cuda import fast_forces as K14
     from rust_particle_system_tpu_torch.ops.cuda import toolchain_probe as K13
     from rust_particle_system_tpu_torch.ops.cuda import fastmode_c128 as K14dF
@@ -1165,50 +1187,176 @@ def main() -> int:
     print(f"phase 2: K2/K3/K3b within their bars on the strip edges (strip of {strip} cells; "
           f"errors K2, K3, K3b): {json.dumps(edges)}")
 
-    # K4 on the image of the stepped 1M state: the fused frame's inputs (sum
-    # rule), given colours (4 channels), radius-2 sprites (margin 3).
-    def check_k4(label, st, sp, rs, **kw):
+    # K4, the plane render (world planes in, image out, or its accumulators),
+    # on the stepped 1M state, the 50k scene and the v1 geometry (K10): the
+    # three colour modes, radius 2, clamp_drift off, centres drifted past
+    # the margin, air rows and empty cells, and the sharded frame's band
+    # accumulators.
+    def check_k4(label, st, sp, rs, clamp=True, **kw):
+        """The accumulator epilogue against the plain accumulators
+        (raster_inputs -> raster_planes_plain) at rtol/atol 1e-4; the image
+        bit-equal to those accumulators put through the plain sum rule and
+        splat_resolve; the image against the whole plain composition at
+        rtol/atol 1e-4 (each pixel sums in another order); a second launch
+        bit-equal to the first.  Returns (geometry, max abs error)."""
+        margin = drifted_patch_margin(sp[1], rs, sp[0])
+        geo = render_geometry(sp[0], sp[1], rs, margin, params.particle_size)
+        args = (st.px, st.py, st.vx, st.vy, geo, params.max_energy)
+        kw = dict(kw, clamp_drift=clamp)
+        acc = raster_planes(*args, background=None, **kw)
         ins = raster_inputs(st.px, st.py, st.vx, st.vy, st.live, params.particle_size,
                             params.max_energy, bounds_static=sp[0], grid_spec=sp[1],
-                            render_spec=rs,
-                            margin=drifted_patch_margin(sp[1], rs, sp[0]), **kw)
-        ka = raster_planes(*ins, True)
-        pa = raster_planes_plain(*ins, True)
-        require(close(ka, pa, 1e-4, 1e-4),
-                f"K4 ({label}) differs from its plain version beyond rtol/atol 1e-4")
-        require(float(pa[-1].sum()) > 0, f"K4 ({label}): nothing drawn")
-        return ins, max_abs(ka, pa)
+                            render_spec=rs, margin=margin, colors=kw.get("colors"),
+                            color_sum=kw.get("color_sum"))
+        pacc = raster_planes_plain(*ins, clamp)
+        require(close(acc, pacc, 1e-4, 1e-4),
+                f"K4 ({label}) accumulators differ from the plain ones beyond rtol/atol 1e-4")
+        require(float(pacc[-1].sum()) > 0, f"K4 ({label}): nothing drawn")
+        img = raster_planes(*args, **kw)
+        require(torch.equal(img, splat_resolve(*accumulators(acc, kw.get("color_sum")))),
+                f"K4 ({label}): the image is not its accumulators through the plain sum "
+                "rule and resolve, bit for bit")
+        pimg = raster_planes_composed(*args, **kw)
+        require(close(img, pimg, 1e-4, 1e-4),
+                f"K4 ({label}) image differs from the plain composition beyond rtol/atol 1e-4")
+        require(torch.equal(raster_planes(*args, background=None, **kw), acc),
+                f"K4 ({label}): two launches differ")
+        return geo, max(max_abs(acc, pacc), max_abs(img, pimg))
 
-    def k4_work(ins) -> tuple:
-        """(bytes, operations) of one K4 call (drift clamped): its planes in,
-        its accumulators out, and each live sprite, its centre clamped into
-        its cell's patch, over the image's pixel centres within its radius."""
-        ppx, ppy, cols, (H, W, sx, sy, m), scal = ins
-        nch, r = len(cols) + 1, scal[0]
+    def k4_work(st, sp, rs, geo, **kw) -> tuple:
+        """(bytes, operations) of one K4 call that writes the image (drift
+        clamped).  Bytes: the x plane in full (it tells the live slots), the
+        y plane and the velocity or colour planes its colour mode reads only
+        in the 32-byte sectors that hold a live slot, the [H, W, 4] image out.
+        Operations: each live sprite, its centre clamped into its cell's
+        patch, over the image's pixel centres within its radius."""
+        (H, W, sx, sy, m), scal, _ = geo
+        ppx, ppy, _, _, _ = raster_inputs(
+            st.px, st.py, st.vx, st.vy, st.live, params.particle_size, params.max_energy,
+            bounds_static=sp[0], grid_spec=sp[1], render_spec=rs, margin=m, colors=WHITE)
+        colors, color_sum = kw.get("colors"), kw.get("color_sum")
+        nch, r = 4 if color_sum is None else 3, scal[0]
+        reads = ([st.vx, st.vy] if colors is None else [] if colors is WHITE
+                 else list(colors[:nch - 1]))
         gh, gw, _ = ppx.shape
         x0 = (torch.arange(gw, device=ppx.device) * sx - m).float()[None, :, None]
         y0 = (H - (torch.arange(gh, device=ppx.device) + 1) * sy - m).float()[:, None, None]
-        live = ppx < 0.5 * FAR
+        live = st.live
         cx = (x0 + (ppx - x0).clamp(r, sx + 2 * m - r))[live]
         cy = (y0 + (ppy - y0).clamp(r, sy + 2 * m - r))[live]
-        return (nbytes(ppx, ppy, *cols) + 4 * nch * H * W,
+        return (nbytes(st.px) + (1 + len(reads)) * live_sectors(live) + 4 * 4 * H * W,
                 sprite_pixels(cx, cy, r, H, W) * ops_raster(nch))
 
     rs_main = RenderSpec()
     img_st = R.plane_step(ps, params, spec)
-    k4_ins, k4_err = check_k4("main path, sum rule", img_st, (BOUNDS, spec), rs_main,
-                              color_sum=1.0)
     gcol = torch.Generator(device="cuda").manual_seed(11)
     given = tuple(torch.rand(img_st.px.shape, generator=gcol, device="cuda")
                   for _ in range(3))
-    _, e4 = check_k4("given colours", img_st, (BOUNDS, spec), rs_main, colors=given)
+    k4_errs = {}
+    main_kw = dict(color_sum=1.0)
+    k4_geo, k4_errs["ramp, sum rule 1"] = check_k4("main path", img_st, (BOUNDS, spec),
+                                                    rs_main, **main_kw)
+    _, k4_errs["ramp, 4 channels"] = check_k4("ramp, 4 channels", img_st, (BOUNDS, spec),
+                                              rs_main)
+    _, k4_errs["white, sum rule 3"] = check_k4("white", img_st, (BOUNDS, spec), rs_main,
+                                               colors=WHITE, color_sum=3.0)
+    _, k4_errs["given colours"] = check_k4("given colours", img_st, (BOUNDS, spec), rs_main,
+                                           colors=given)
     rs2 = RenderSpec(max_radius_px=2)
     require(drifted_patch_margin(spec, rs2, BOUNDS) == 3, "radius-2 margin")
-    _, e2 = check_k4("radius 2", img_st, (BOUNDS, spec), rs2, color_sum=1.0)
-    record("K4", "K4 plane rasterizer", "rust_particle_system_tpu_torch/csrc/splat_planes.cu",
-           "rust_particle_system_tpu/render/splat_planes.py:222", max(k4_err, e4, e2),
-           cuda_ms(lambda: raster_planes(*k4_ins, True), 20),
-           cuda_ms(lambda: raster_planes_plain(*k4_ins, True), 2), *k4_work(k4_ins))
+    _, k4_errs["radius 2"] = check_k4("radius 2", img_st, (BOUNDS, spec), rs2, color_sum=1.0)
+    _, k4_errs["clamp_drift off"] = check_k4("clamp_drift off", img_st, (BOUNDS, spec),
+                                             rs_main, clamp=False, color_sum=1.0)
+    # Centres drifted up to 1.7 cells from their cell: clamped into the
+    # patch, or (clamp_drift off) clipped by it.
+    pl = demo_planes(torch, spec, 0.3, 1.7, seed=14, device="cuda")
+    drifted = R.PlaneState(px=pl[0], py=pl[1], vx=pl[2] * 40, vy=pl[3] * 40, idsf=pl[4],
+                           frame=0, lost=ps.lost, n=int((pl[0] < 5e5).sum()))
+    for clamp in (True, False):
+        _, k4_errs[f"drifted, clamp {clamp}"] = check_k4(
+            f"drifted past the margin, clamp {clamp}", drifted, (BOUNDS, spec), rs_main,
+            clamp=clamp, color_sum=1.0)
+    # Air rows 50..59, and every third cell of rows 80..89 emptied.
+    air = [p.clone() for p in (img_st.px, img_st.py, img_st.vx, img_st.vy)]
+    for c, p in enumerate(air):
+        p[50:60] = 1e6 if c < 2 else 0.0
+        p[80:90, ::3] = 1e6 if c < 2 else 0.0
+    air_st = dataclasses.replace(img_st, px=air[0], py=air[1], vx=air[2], vy=air[3])
+    _, k4_errs["air rows, empty cells"] = check_k4("air rows and empty cells", air_st,
+                                                   (BOUNDS, spec), rs_main, color_sum=1.0)
+    # The ramp bit for bit: one live slot a cell (slot 0) within 1 unit of
+    # its cell's centre, so no two discs (radius 3 px, 9 px apart) reach one
+    # pixel and each pixel sums one term.  The kernel's accumulators and
+    # image must then equal the plain composition's exactly, which holds the
+    # kernel's ramp (a true division by max_energy) to energy_color's on the
+    # card, where a division by a host scalar would be a multiply by its
+    # reciprocal.
+    gsp = torch.Generator(device="cuda").manual_seed(15)
+    cell_r, cell_c = torch.meshgrid(torch.arange(spec.gh, device="cuda"),
+                                    torch.arange(spec.gw, device="cuda"), indexing="ij")
+    uni = lambda: torch.rand(spec.gh, spec.gw, generator=gsp, device="cuda")
+    speed = (2.6 * params.max_energy * uni()).sqrt()  # 0.5 |v|^2 up to 1.3 max_energy
+    angle = 2 * math.pi * uni()
+    sparse = [torch.full_like(img_st.px, 1e6), torch.full_like(img_st.py, 1e6),
+              torch.zeros_like(img_st.vx), torch.zeros_like(img_st.vy)]
+    for plane, v in zip(sparse, (spec.x_min + (cell_c + 0.5) * spec.cell_width + 2 * uni() - 1,
+                                 spec.y_min + (cell_r + 0.5) * spec.cell_size + 2 * uni() - 1,
+                                 speed * torch.cos(angle), speed * torch.sin(angle))):
+        plane[..., 0] = v
+    energy = 0.5 * (sparse[2][..., 0] ** 2 + sparse[3][..., 0] ** 2)
+    require(not torch.equal(energy / params.max_energy,
+                            energy / torch.full((), params.max_energy, device="cuda")),
+            "sparse ramp: the energies do not tell a true division from a multiply by "
+            "the reciprocal")
+    for cs in (1.0, None):
+        sargs = (*sparse, k4_geo, params.max_energy)
+        for bg in (None, BLACK):
+            got = raster_planes(*sargs, color_sum=cs, clamp_drift=True, background=bg)
+            want = raster_planes_composed(*sargs, color_sum=cs, clamp_drift=True,
+                                          background=bg)
+            require(torch.equal(got, want) and float(want.sum()) > 0,
+                    f"K4 (one slot a cell, ramp, color_sum {cs}, background {bg}) is not "
+                    "bit-equal to the plain composition")
+    # The sharded frame's accumulators: each of 4 bands of rows embedded in
+    # planes of dead slots, as make_plane_sharded_frame renders them; their
+    # sum against the whole state's accumulators.
+    band_acc = []
+    for b, band in enumerate(torch.arange(spec.gh).tensor_split(4)):
+        full = []
+        for p, f in zip((img_st.px, img_st.py, img_st.vx, img_st.vy), (1e6, 1e6, 0.0, 0.0)):
+            q = torch.full_like(p, f)
+            q[band] = p[band]
+            full.append(q)
+        band_st = dataclasses.replace(img_st, px=full[0], py=full[1], vx=full[2], vy=full[3])
+        _, k4_errs[f"band {b}"] = check_k4(f"band {b} of 4", band_st, (BOUNDS, spec), rs_main,
+                                           color_sum=1.0)
+        band_acc.append(raster_planes(*full, k4_geo, params.max_energy, color_sum=1.0,
+                                      clamp_drift=True, background=None))
+    whole = raster_planes(img_st.px, img_st.py, img_st.vx, img_st.vy, k4_geo,
+                          params.max_energy, color_sum=1.0, clamp_drift=True, background=None)
+    require(close(sum(band_acc), whole, 1e-4, 1e-4),
+            "K4: the 4 bands' accumulators do not sum to the whole state's within 1e-4")
+    # The 50k scene after 65 frames (the pool forming at the floor).
+    sim_k4 = Simulation(SPHFluid.create(n=50_000))
+    sim_k4.update_params(gravity=400.0)
+    sim_k4.run(65)
+    scene_st, scene_sp = sim_k4.state, (sim_k4.model.bounds, sim_k4.model.grid)
+    given50 = tuple(torch.rand(scene_st.px.shape, generator=gcol, device="cuda")
+                    for _ in range(3))
+    for label, kw in (("ramp, sum rule 1", dict(color_sum=1.0)),
+                      ("white, sum rule 3", dict(colors=WHITE, color_sum=3.0)),
+                      ("given colours", dict(colors=given50))):
+        _, k4_errs[f"50k scene, {label}"] = check_k4(f"50k scene, {label}", scene_st,
+                                                     scene_sp, rs_main, **kw)
+    record("K4", "K4 plane render (world planes in, 1080p image out)",
+           "rust_particle_system_tpu_torch/csrc/splat_planes.cu",
+           "rust_particle_system_tpu/render/splat_planes.py:222", max(k4_errs.values()),
+           cuda_ms(lambda: raster_planes(img_st.px, img_st.py, img_st.vx, img_st.vy, k4_geo,
+                                         params.max_energy, clamp_drift=True, **main_kw), 20),
+           cuda_ms(lambda: raster_planes_composed(img_st.px, img_st.py, img_st.vx, img_st.vy,
+                                                  k4_geo, params.max_energy, clamp_drift=True,
+                                                  **main_kw), 2),
+           *k4_work(img_st, (BOUNDS, spec), rs_main, k4_geo, **main_kw))
     # K10: bounds (0, 90, 0, 45), 9-unit cells, a 90x180 image: sy = 36 px,
     # patch height 42 > 32, so the JAX package takes its v1 rasterizer.
     v1_bounds = (0.0, 90.0, 0.0, 45.0)
@@ -1217,18 +1365,33 @@ def main() -> int:
     pl = demo_planes(torch, v1_spec, 0.4, 0.3, seed=12, device="cuda")
     v1_st = R.PlaneState(px=pl[0], py=pl[1], vx=pl[2] * 40, vy=pl[3] * 40, idsf=pl[4],
                          frame=0, lost=ps.lost, n=int((pl[0] < 5e5).sum()))
-    k10_ins, k10_err = check_k4("v1 geometry", v1_st, (v1_bounds, v1_spec), v1_rs,
-                                color_sum=1.0)
-    _, e10 = check_k4("v1 geometry, given colours", v1_st, (v1_bounds, v1_spec), v1_rs,
-                      colors=(pl[2].abs(), pl[3].abs(), pl[2].abs()))
-    record("K10", "K10 plane rasterizer, v1 geometry (the K4 kernel)",
+    k10_errs = {}
+    v1_given = (pl[2].abs(), pl[3].abs(), pl[2].abs())
+    k10_geo, k10_errs["ramp, sum rule 1"] = check_k4("v1 geometry", v1_st,
+                                                     (v1_bounds, v1_spec), v1_rs, color_sum=1.0)
+    _, k10_errs["given colours"] = check_k4("v1 geometry, given colours", v1_st,
+                                            (v1_bounds, v1_spec), v1_rs, colors=v1_given)
+    _, k10_errs["white, sum rule 3"] = check_k4("v1 geometry, white", v1_st,
+                                                (v1_bounds, v1_spec), v1_rs, colors=WHITE,
+                                                color_sum=3.0)
+    _, k10_errs["clamp_drift off"] = check_k4("v1 geometry, clamp_drift off", v1_st,
+                                              (v1_bounds, v1_spec), v1_rs, clamp=False,
+                                              color_sum=1.0)
+    record("K10", "K10 plane render, v1 geometry (the K4 kernel)",
            "rust_particle_system_tpu_torch/csrc/splat_planes.cu",
-           "rust_particle_system_tpu/render/splat_planes.py:156", max(k10_err, e10),
-           cuda_ms(lambda: raster_planes(*k10_ins, True), 20),
-           cuda_ms(lambda: raster_planes_plain(*k10_ins, True), 5), *k4_work(k10_ins))
-    print(f"phase 2: K4 within rtol/atol 1e-4 at 1080p (sum rule {k4_err:.2e}, given "
-          f"colours {e4:.2e}, radius 2 {e2:.2e}) and at the v1 geometry (K10, "
-          f"{max(k10_err, e10):.2e})")
+           "rust_particle_system_tpu/render/splat_planes.py:156", max(k10_errs.values()),
+           cuda_ms(lambda: raster_planes(v1_st.px, v1_st.py, v1_st.vx, v1_st.vy, k10_geo,
+                                         params.max_energy, clamp_drift=True, color_sum=1.0),
+                   20),
+           cuda_ms(lambda: raster_planes_composed(v1_st.px, v1_st.py, v1_st.vx, v1_st.vy,
+                                                  k10_geo, params.max_energy, clamp_drift=True,
+                                                  color_sum=1.0), 5),
+           *k4_work(v1_st, (v1_bounds, v1_spec), v1_rs, k10_geo, color_sum=1.0))
+    print(f"phase 2: K4 within rtol/atol 1e-4 of its plain accumulators and composition, "
+          f"the image bit-equal to its accumulators resolved, two launches bit-equal, "
+          f"bit-equal to the plain composition with one slot a cell (ramp), at "
+          f"1080p ({json.dumps({k: f'{v:.2e}' for k, v in k4_errs.items()})}) and at the v1 "
+          f"geometry (K10, {json.dumps({k: f'{v:.2e}' for k, v in k10_errs.items()})})")
 
     # K6 on the JAX package's headline configuration (bench.py:387-389): 1M
     # uniform particles, capacity 64, pair-packed, gravity 300, shader_delay 0,
@@ -1659,8 +1822,9 @@ def main() -> int:
                                 fmx, w4[0]),
         "fastmode_c128.c_vpu": (K14dF.c_vpu, cw, cl),
         "splat_planes.raster_planes": (
-            lambda x, y: raster_planes(x, y, k4_ins[2], *k4_ins[3:], True),
-            k4_ins[0], k4_ins[1]),
+            lambda x, y: raster_planes(x, y, img_st.vx, img_st.vy, k4_geo, params.max_energy,
+                                       color_sum=1.0),
+            img_st.px, img_st.py),
         "splat_cells.raster_cells": (lambda x, y: raster_cells(x, y, *k11b[2:]),
                                      k11b[0], k11b[1])})
     print(f"phase 2: K13c, K1 and K3 under a side stream, read after its synchronize() alone "
@@ -1809,6 +1973,40 @@ def main() -> int:
           f"{covered} px drawn; 10 step_and_render frames bit-equal to plane_step; "
           f"launches {launches}; {scene_s:.2f} s host clock incl. stats; "
           f"{ms50:.3f} ms/frame after frame 310 [{card}]")
+
+    # frame_render: the render part of plane_frame is one K4 launch and no
+    # other kernel.  Two frames of plane_frame against two of plane_step
+    # from the same state, every device row of torch.profiler counted
+    # (kernels, copies, fills); then the launch counts of two frames.
+    def device_rows(fn) -> collections.Counter:
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
+                                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+
+    s_r = sim.state
+    with_image = device_rows(lambda: R.plane_frame(s_r, sim.params, model.grid,
+                                                   model.render_spec, bounds_static=model.bounds))
+    step_only = device_rows(lambda: R.plane_step(s_r, sim.params, model.grid))
+    render_rows = with_image - step_only
+    require(not (step_only - with_image) and len(render_rows) == 1
+            and "render_kernel" in next(iter(render_rows))
+            and next(iter(render_rows.values())) == 2,
+            f"the render part of plane_frame is not one K4 launch a frame: {dict(render_rows)}, "
+            f"missing {dict(step_only - with_image)}")
+    reset()
+    for _ in range(2):
+        R.plane_frame(s_r, sim.params, model.grid, model.render_spec, bounds_static=model.bounds)
+    torch.cuda.synchronize()
+    launches = read("frame_render")
+    require(launches["K4"] == 2, f"two plane_frame frames launched K4 {launches['K4']} times")
+    print(f"phase 3: the render part of 2 plane_frame frames (torch.profiler, against 2 "
+          f"plane_step frames): {dict(render_rows)} and nothing else; launches {launches}")
 
     # cli: the documented drive command, its PNG against the scene's image.
     png = HERE / "build" / "chip_smoke_50k.png"

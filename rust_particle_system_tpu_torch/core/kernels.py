@@ -71,9 +71,15 @@ def bounce_bounds(pos, vel, bounds, damping_factor: float):
 
 
 def energy_color(vel, max_energy: float):
-    """Blue->green->red ramp on kinetic energy ``0.5 * |v|^2`` (unit mass), alpha 1."""
+    """Blue->green->red ramp on kinetic energy ``0.5 * |v|^2`` (unit mass), alpha 1.
+    The energy is divided by ``max_energy`` held in a tensor on its device
+    (a fill, no copy from the host), so the division is a true one on the
+    card too, as the JAX package and kernel K4 divide: PyTorch on CUDA turns
+    a division by a host scalar into a multiply by its reciprocal, which
+    rounds differently."""
     speed_sq = (vel * vel).sum(dim=-1)
-    t = (0.5 * speed_sq / max_energy).clamp(0.0, 1.0)
+    divisor = torch.full((), float(max_energy), dtype=speed_sq.dtype, device=speed_sq.device)
+    t = (0.5 * speed_sq / divisor).clamp(0.0, 1.0)
     lo = t * 2.0
     hi = (t - 0.5) * 2.0
     low = t < 0.5

@@ -50,7 +50,7 @@ RECORDS = {
     "rps_pair_force_integrated": "13P5i9fP",
     "rps_pair_force": "11P5i2fP",
     "rps_nbody_accel": "2Pi3fP",
-    "rps_splat_planes": "6P10i3fP",
+    "rps_splat_planes": "8P12i9f4fP",
     "rps_splat_cells": "7P6i2fP",
     "rps_fm_moments": "2P8PP5i3fP",
     "rps_fm_eval": "3P8P5i3fP",

@@ -8,7 +8,7 @@ for 4 and 5, K12 for 2 and 3; for 5 and 6 the defer mask, the density walk K2,
 the pressure terms, the fused force walk K3 with the frame tail, or with
 ``fuse_tail=False`` the raw walk K3b and the tail in torch; for 2-4 no defer
 mask and always the raw walk), ``plane_frame`` (a frame plus its image through
-the plane rasterizer K4), ``render_plane_state`` and ``to_particle_state``.
+the plane render K4), ``render_plane_state`` and ``to_particle_state``.
 
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
@@ -24,7 +24,7 @@ import torch
 from ...core import kernels as K
 from ...core.params import SimParams, f32_mul
 from ...core.state import ParticleState
-from ...render.splat_planes import drifted_patch_margin, splat_from_planes
+from ...render.splat_planes import WHITE, drifted_patch_margin, raster_planes, render_geometry
 from ..grid import GridSpec, build_grid, cell_index
 from .plane_build import cell_planes_aos
 from .rebin import SENTINEL, check_variant, rebin_planes
@@ -260,8 +260,8 @@ def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
                 bounds_static: tuple, patch_margin: int | None = None,
                 fuse_tail: bool = True, variant: int = 6):
     """Fused step + render: the frame, then its image straight from the end
-    planes through the plane rasterizer (K4), with no binning.  Returns
-    (state, [H, W, 4] image).
+    planes through the plane render K4 (one launch: world planes in, image
+    out), with no binning.  Returns (state, [H, W, 4] image).
 
     The patch is the tight one (sprite radius + 1 px of drift slack) with
     centre clamping, so a sprite that drifted further renders displaced
@@ -269,30 +269,26 @@ def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
     the energy ramp (sum rule 1), in warm-up too, as in JAX.  ``fuse_tail``
     and ``variant`` as in :func:`plane_step`."""
     new = plane_step(ps, params, spec, fuse_tail, variant)
-    image = splat_from_planes(
-        new.px, new.py, new.vx, new.vy, new.live, params.particle_size,
-        params.max_energy, bounds_static=bounds_static, grid_spec=spec,
-        render_spec=render_spec,
-        margin=drifted_patch_margin(spec, render_spec, bounds_static, patch_margin),
-        clamp_drift=True, color_sum=1.0)
+    geometry = render_geometry(
+        bounds_static, spec, render_spec,
+        drifted_patch_margin(spec, render_spec, bounds_static, patch_margin),
+        params.particle_size)
+    image = raster_planes(new.px, new.py, new.vx, new.vy, geometry, params.max_energy,
+                          color_sum=1.0, clamp_drift=True)
     return new, image
 
 
 def render_plane_state(ps: PlaneState, params: SimParams, spec: GridSpec,
                        render_spec, bounds_static: tuple):
-    """Standalone render of plane-resident state, with no binning: the same
-    patch and clamping as the fused frame.  Warm-up states draw white (sum
-    rule 3), later ones the energy ramp (sum rule 1); the choice is made from
-    the host-side frame counter, so nothing is read back."""
-    live = ps.live
-    if ps.frame > params.shader_delay:
-        rgb = K.energy_color(torch.stack([ps.vx, ps.vy], dim=-1), params.max_energy)
-        colors, color_sum = (rgb[..., 0], rgb[..., 1], rgb[..., 2]), 1.0
-    else:
-        white = torch.ones_like(ps.px)
-        colors, color_sum = (white, white, white), 3.0
-    return splat_from_planes(
-        ps.px, ps.py, ps.vx, ps.vy, live, params.particle_size, params.max_energy,
-        bounds_static=bounds_static, grid_spec=spec, render_spec=render_spec,
-        margin=drifted_patch_margin(spec, render_spec, bounds_static),
-        clamp_drift=True, colors=colors, color_sum=color_sum)
+    """Standalone render of plane-resident state, with no binning (one K4
+    launch): the same patch and clamping as the fused frame.  Warm-up states
+    draw white (sum rule 3), later ones the energy ramp (sum rule 1); the
+    choice is made from the host-side frame counter, so nothing is read
+    back."""
+    geometry = render_geometry(bounds_static, spec, render_spec,
+                               drifted_patch_margin(spec, render_spec, bounds_static),
+                               params.particle_size)
+    warm = ps.frame <= params.shader_delay
+    return raster_planes(ps.px, ps.py, ps.vx, ps.vy, geometry, params.max_energy,
+                         colors=WHITE if warm else None, color_sum=3.0 if warm else 1.0,
+                         clamp_drift=True)

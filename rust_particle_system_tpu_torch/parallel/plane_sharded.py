@@ -40,7 +40,7 @@ from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band,
                                retention_merge)
 from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
 from ..render.splat import splat_resolve
-from ..render.splat_planes import MARGIN, splat_from_planes
+from ..render.splat_planes import MARGIN, accumulators, raster_planes, render_geometry
 from .halo import edge_rows, exchange_halo, halo_rows, rebin_halo
 from .mesh import BandMesh
 
@@ -145,9 +145,9 @@ def make_plane_sharded_step(spec, mesh: BandMesh, rebin_variant: int = 6,
 
 def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
                              rebin_variant: int = 6, fuse_tail: bool = True):
-    """The sharded step plus its image: each band rasterizes its rows (K4) into
-    full-image accumulators, one all_reduce sums them, and every rank resolves
-    the image.  Returns ``(slab PlaneState, SimParams) -> (slab PlaneState,
+    """The sharded step plus its image: each band rasterizes its rows (K4, its
+    accumulator epilogue) into full-image accumulators, one all_reduce sums
+    them, and every rank resolves the image.  Returns ``(slab PlaneState, SimParams) -> (slab PlaneState,
     [H, W, 4] image, diags)``.
 
     The band's slab is embedded in full-height planes of dead slots, because
@@ -167,10 +167,11 @@ def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
                                device=p.device)
             plane[rows] = p
             full.append(plane)
-        rgb, alpha = splat_from_planes(
-            *full, full[0] < 0.5 * SENTINEL, params.particle_size, params.max_energy,
-            bounds_static=bounds_static, grid_spec=spec, render_spec=render_spec,
-            margin=MARGIN, resolve=False, clamp_drift=True, color_sum=1.0)
+        geometry = render_geometry(bounds_static, spec, render_spec, MARGIN,
+                                   params.particle_size)
+        rgb, alpha = accumulators(
+            raster_planes(*full, geometry, params.max_energy, color_sum=1.0,
+                          clamp_drift=True, background=None), 1.0)
         acc = mesh.all_reduce(torch.cat([rgb, alpha[..., None]], dim=-1))
         image = splat_resolve(acc[..., :3], acc[..., 3], (0.0, 0.0, 0.0, 1.0))
         return new, image, diags

@@ -218,5 +218,7 @@ def test_planes_compatible_and_margin_match_jax(bounds, cell, cap, rs):
 
 def test_raster_rejects_other_devices():
     z = torch.zeros((2, 3, 4), device="meta")
+    geometry = TP.render_geometry(BOUNDS, GridSpec.from_bounds(BOUNDS, 9.0, 4),
+                                  RenderSpec(*SPEC), 4, 1.0)
     with pytest.raises(ValueError, match="unsupported device"):
-        TP.raster_planes(z, z, [z, z], (18, 27, 9, 9, 2), (2.0, 1.6, 2.5), False)
+        TP.raster_planes(z, z, z, z, geometry, 1.0)
