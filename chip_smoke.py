@@ -27,7 +27,9 @@ line each:
      passes of rebin variants 4 and 5) in each of its four modes, each whole
      variant, and variant 5 against K1, bit-equal on the same states, and in
      band mode on the 4 x 31 rows; K12 (variants 2 and 3) bit-equal, also
-     where counts exceed C; K2, K3 and K3b at the stated tolerances, on the
+     where counts exceed C and on its tile's edges (gw 1, 2, 3, cell counts
+     that are not a multiple of the tile, C = 1024 and odd C), two launches
+     bit-equal; K2, K3 and K3b at the stated tolerances, on the
      1M state with and without forced deferrals and on the strip walks'
      edges (a width that is not a multiple of the strip, cells with all C
      slots live, an empty strip beside air rows, C = 32, 64, 40 and 1024);
@@ -45,7 +47,8 @@ line each:
      headline configuration, bench.py:387-389) with forced deferrals, at C=32
      and on an odd-width grid, and bit-equal to K2/K3/K3b on the same C=64
      planes (K6 launches their strip walk); K8
-     at n = 16,384 and 1000, coincident particles included; K11 (the
+     at n = 16,384, 16,383, 1000, 31 and 1, coincident particles included,
+     two launches bit-equal; K11 (the
      cell-binned splat) at 1080p, capacity 64, rtol/atol 1e-4 with equal
      overflow, on a 1M uniform state, the 50k scene's state under the camera
      (5, -3, 1.5), a crammed cluster that overflows and particles on the
@@ -174,11 +177,12 @@ FP32_OPS_S = 67e12
 TF32_OPS_S = 495e12  # dense, on the tensor cores
 # Operations per evaluation, counted from the kernels' inner loops (a sqrt,
 # divide or rsqrt counts as one, an FMA as two): a density pair and a force
-# pair (csrc/sph.cu), an N-body pair (csrc/nbody.cu), and a (slot, pixel) of
+# pair (csrc/sph.cu), an N-body pair (csrc/nbody.cu: delta 2, |delta|^2 + eps^2
+# 4, rsqrt 1, w = s^3 (G - R eps s) 5, a += delta w 4), and a (slot, pixel) of
 # the rasterizer with nch accumulators (csrc/splat_planes.cu).
 OPS_DENSITY_PAIR = 12
 OPS_FORCE_PAIR = 32
-OPS_NBODY_PAIR = 20
+OPS_NBODY_PAIR = 16
 
 
 def ops_raster(nch: int) -> int:
@@ -298,13 +302,18 @@ def close(a, b, rtol: float, atol: float, mask=None) -> bool:
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
-def rebin_tile_width(C: int) -> int:
-    """T, the own columns of one K1 block at C slots a cell: tile_cols(C) - 3
-    of csrc/rebin.cu."""
-    src = (HERE / "rust_particle_system_tpu_torch" / "csrc" / "rebin.cu").read_text()
-    expr = re.search(r"constexpr int tile_cols\(int C\) \{ return (.*?); \}", src).group(1)
+def tile_of(source: str, fn: str, C: int) -> int:
+    """The value at C of the one-line ``constexpr int fn(int C)`` of
+    csrc/``source`` (a clamp of an integer quotient)."""
+    src = (HERE / "rust_particle_system_tpu_torch" / "csrc" / source).read_text()
+    expr = re.search(rf"constexpr int {fn}\(int C\) \{{ return (.*?); \}}", src).group(1)
     clamp = lambda v, lo, hi: max(lo, min(hi, v))
-    return eval(expr.replace("/", "//"), {"clamp_int": clamp}, {"C": C}) - 3
+    return eval(expr.replace("/", "//"), {"clamp_int": clamp}, {"C": C})
+
+
+def rebin_tile_width(C: int) -> int:
+    """T, the own columns of one K1 block at C slots a cell: tile_cols(C) - 3."""
+    return tile_of("rebin.cu", "tile_cols", C) - 3
 
 
 def demo_planes(torch, spec, fill_frac: float, drift: float, seed: int, device):
@@ -1015,7 +1024,7 @@ def main() -> int:
         for v in (2, 3):
             z, cz = rebin_planes(planes, sp, variant=v)
             require(same(x, z) and torch.equal(cx, cz), f"variant {v} ({label}) is not K12's")
-        return cx
+        return x, cx
 
     check_k12("1M stepped", rin, spec)
     check_k12("air rows", air, spec)
@@ -1026,20 +1035,42 @@ def main() -> int:
                       demo_planes(torch, small, 0.7, drift, seed=C + int(10 * drift),
                                   device="cuda"), small)
     small16 = GridSpec(x_min=-90.0, y_min=-45.0, cell_size=9.0, gw=11, gh=7, capacity=16)
-    crowd = check_k12("crowded", demo_planes(torch, small16, 0.95, 1.8, seed=95,
+    _, crowd = check_k12("crowded", demo_planes(torch, small16, 0.95, 1.8, seed=95,
                                              device="cuda"), small16)
     require(int(crowd.max()) > 16, f"the crowded grid never overflowed ({int(crowd.max())})")
+    # The tile's edges (T own cells a block, read from csrc/rebin_compact.cu):
+    # cell counts that are not a multiple of T (105, 40, 18, 21, 15, 52), gw =
+    # 1, 2, 3 (every dx group wraps into another row), a grid smaller than one
+    # tile, C = 1024 and odd C; each also launched twice, bit-equal.
+    k12_edges = []
+    for gw, gh, C in ((21, 5, 128), (1, 40, 16), (2, 9, 64), (3, 7, 37), (3, 1, 128),
+                      (5, 3, 1024), (13, 4, 77)):
+        sp = GridSpec(x_min=-4.5 * gw, y_min=-4.5 * gh, cell_size=9.0, gw=gw, gh=gh,
+                      capacity=C)
+        pl = demo_planes(torch, sp, 0.8, 1.8, seed=gw * 100 + C, device="cuda")
+        x, cx = check_k12(f"{gw}x{gh}, C={C}", pl, sp)
+        again, ca = rebin_compact(pl, sp)
+        require(same(x, again) and torch.equal(cx, ca),
+                f"K12 ({gw}x{gh}, C={C}) gave other bits on a second launch")
+        k12_edges.append(f"{gw}x{gh}/C={C}")
     k12_out, k12_cnt = rebin_compact(rin, spec)
+    again, ca = rebin_compact(rin, spec)
+    require(same(k12_out, again) and torch.equal(k12_cnt, ca),
+            "K12 (1M stepped) gave other bits on a second launch")
     k12_err = max(max_abs(x, y) for x, y in zip(k12_out, rebin_compact_plain(rin, spec, fills)[0]))
     record("K12", "K12 full-window compaction (variants 2, 3)",
            "rust_particle_system_tpu_torch/csrc/rebin_compact.cu",
            "rust_particle_system_tpu/ops/pallas/rebin.py:124", k12_err,
            cuda_ms(lambda: rebin_compact(rin, spec), 20),
            cuda_ms(lambda: rebin_compact_plain(rin, spec, fills), 3),
-           nbytes(*rin, *k12_out, k12_cnt), 0)
+           # x in full; y and the other channels at the live slots alone.
+           nbytes(rin[0]) + (len(rin) - 1) * live_sectors(rin[0] < 5e5)
+           + nbytes(*k12_out, k12_cnt), 0)
     print(f"phase 2: K12 bit-equal to its plain version and as variants 2 and 3 (1M stepped, "
           f"air rows, C=16 and C=64 x drift 0.4/0.9/1.8, crowded: counts up to "
-          f"{int(crowd.max())} > C=16)")
+          f"{int(crowd.max())} > C=16; tile edges {' '.join(k12_edges)} at "
+          f"T={tile_of('rebin_compact.cu', 'tile_cells', 128)} for C=128); two launches "
+          "bit-equal")
 
     npx, npy, nvx0, nvy0, _ = a
 
@@ -1500,8 +1531,13 @@ def main() -> int:
             out.append((d.abs() * w.abs()[..., None]).sum(1))
         return torch.cat(out)
 
+    # Also n = 1, 31 and 16,383 (below one slice's chunk, below one block's
+    # particles, a ragged last block and slice); every n launched twice,
+    # bit-equal (the slices are combined in a fixed order).
     k8_err = 0.0
-    for label, n in (("disc", N_NBODY), ("disc", 1000), ("coincident", 1000)):
+    k8_cases = (("disc", N_NBODY), ("disc", 1000), ("coincident", 1000), ("disc", 1),
+                ("disc", 31), ("disc", N_NBODY - 1))
+    for label, n in k8_cases:
         pos = nmodel.init(torch.Generator(device="cuda").manual_seed(n), n).pos
         if label == "coincident":
             pos[:500] = pos[0].clone()
@@ -1509,6 +1545,8 @@ def main() -> int:
         require(bool(torch.isfinite(ka).all()), f"K8 ({label}, n={n}) not finite")
         require(bool(torch.all((ka - pa).abs() <= 2e-3 + 2e-4 * term_scale(pos))),
                 f"K8 ({label}, n={n}) differs from its plain version beyond the bar")
+        require(torch.equal(ka, nbody_accel(pos, nparams)),
+                f"K8 ({label}, n={n}) gave other bits on a second launch")
         k8_err = max(k8_err, max_abs(ka, pa))
     pos16 = nmodel.init(torch.Generator(device="cuda").manual_seed(N_NBODY), N_NBODY).pos
     record("K8", "K8 all-pairs N-body", "rust_particle_system_tpu_torch/csrc/nbody.cu",
@@ -1516,8 +1554,9 @@ def main() -> int:
            cuda_ms(lambda: nbody_accel(pos16, nparams), 20),
            cuda_ms(lambda: nbody_accel_plain(pos16, nparams), 3),
            2 * nbytes(pos16), N_NBODY * N_NBODY * OPS_NBODY_PAIR)
-    print(f"phase 2: K8 within the bar at n={N_NBODY} and 1000 (coincident particles "
-          f"finite), max abs err {k8_err:.2e}")
+    print(f"phase 2: K8 within the bar at n={N_NBODY}, {N_NBODY - 1}, 1000, 31 and 1 "
+          f"(coincident particles finite), two launches bit-equal, max abs err "
+          f"{k8_err:.2e}")
 
     # K11, the cell-binned splat, against its plain version at 1080p and
     # capacity 64, rtol/atol 1e-4 (K4's bar), overflow equal, on (a) a 1M

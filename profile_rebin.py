@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Split the rebin kernel K1 (csrc/rebin.cu) into its parts on one NVIDIA GPU.
+"""Split the rebin kernel K1 (csrc/rebin.cu), or K12 (csrc/rebin_compact.cu),
+into its parts on one NVIDIA GPU.
 
-    python3 profile_rebin.py [--out parts.json]
+    python3 profile_rebin.py [--k12] [--out parts.json]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc; it
 imports nothing of JAX.  It builds csrc/rebin.cu as it stands and copies of
@@ -18,6 +19,15 @@ after 300, 1M uniform pair-packed C=64 after 5.  The parts:
                made);
   y_pass1_no_loads    that pass on constants in place of its eight loads;
   y_pass1_no_ballots  that pass with each ballot replaced by the lane's bit.
+
+With ``--k12`` it splits K12, the full-window compaction of rebin variants 2
+and 3, on the first two states instead (its parts under build/compact_parts/):
+
+  full         the kernel as it is; must equal the port's K12
+               (``rebin_compact``) bit for bit;
+  staging      the staging alone (no ranking warp runs);
+  staging_ranking  the staging and the ranks and counts, no value moved and
+               no fill written.
 
 The cut-down copies compute wrong planes on purpose; only their time is read.
 Prints the card's name and power limit, then one JSON object: ptxas's
@@ -39,12 +49,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "rust_particle_system_tpu_torch" / "csrc"
-OUT_DIR = HERE / "build" / "rebin_parts"
 
 
 def _cut(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise SystemExit(f"profile_rebin: csrc/rebin.cu no longer has {old!r} once")
+        raise SystemExit(f"profile_rebin: the kernel's source no longer has {old!r} once")
     return src.replace(old, new)
 
 
@@ -72,19 +81,31 @@ def parts(src: str) -> dict:
     }
 
 
-def build(sources: dict, nvcc_flags) -> tuple:
+def compact_parts(src: str) -> dict:
+    """K12's source and its cut-down copies, by name."""
+    ranking = "for (int t = warp; t < T; t += kCompactWarps) {"
+    ranks = _cut(src, "if (cand && rank < C) {", "if (cand && rank < 0) {")
+    return {
+        "full": src,
+        "staging": _cut(src, ranking, ranking.replace("t < T;", "t < 0;")),
+        "staging_ranking": _cut(ranks, "if (s >= before) for_channels",
+                                "if (s >= before + C) for_channels"),
+    }
+
+
+def build(sources: dict, nvcc_flags, out_dir: Path, file: str, entry: str) -> tuple:
     """One library per part, all nvcc runs started together: the bound
     entries and ptxas's resource lines, by part."""
     procs = {}
     for name, src in sources.items():
-        d = OUT_DIR / name.replace("/", "_")
+        d = out_dir / name.replace("/", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "rebin.cu").write_text(src)
+        (d / file).write_text(src)
         (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
         so = d / "lib.so"
         procs[name] = (subprocess.Popen(
             ["/usr/local/cuda/bin/nvcc", *nvcc_flags, "-Xptxas", "-v", "-shared",
-             str(d / "rebin.cu"), "-o",
+             str(d / file), "-o",
              str(so)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs, resources = {}, {}
     for name, (proc, so) in procs.items():
@@ -93,15 +114,17 @@ def build(sources: dict, nvcc_flags) -> tuple:
             raise SystemExit(f"profile_rebin: nvcc failed on {name}:\n{out}")
         resources[name] = " | ".join(line.split(":", 1)[-1].strip() for line in out.splitlines()
                                      if "registers" in line or "spill" in line)
-        lib = ctypes.PyDLL(str(so))
-        lib.rps_rebin.argtypes = (ctypes.c_char_p, ctypes.c_int)
-        lib.rps_rebin.restype = ctypes.c_int
-        libs[name] = lib.rps_rebin
+        fn = getattr(ctypes.PyDLL(str(so)), entry)
+        fn.argtypes = (ctypes.c_char_p, ctypes.c_int)
+        fn.restype = ctypes.c_int
+        libs[name] = fn
     return libs, resources
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--k12", action="store_true",
+                    help="split K12 (csrc/rebin_compact.cu) instead of K1")
     ap.add_argument("--out", default=None, help="also write the result here (JSON)")
     args = ap.parse_args()
 
@@ -116,28 +139,42 @@ def main() -> int:
     from rust_particle_system_tpu_torch.models.sph import SPHFluid
     from rust_particle_system_tpu_torch.ops.cuda import _lib
     from rust_particle_system_tpu_torch.ops.cuda import resident as R
-    from rust_particle_system_tpu_torch.ops.cuda.rebin import rebin_planes
+    from rust_particle_system_tpu_torch.ops.cuda.rebin import rebin_compact, rebin_planes
     from rust_particle_system_tpu_torch.ops.grid import GridSpec
     from rust_particle_system_tpu_torch.runtime.profiling import device_ms
     from rust_particle_system_tpu_torch.runtime.simulation import Simulation
 
     card = gpu_line()
     print(card)
-    libs, resources = build(parts((CSRC / "rebin.cu").read_text()), _lib.NVCC_FLAGS)
-    record = struct.Struct(_lib.RECORDS["rps_rebin"] + "0P")
+    if args.k12:
+        file, entry, split, exact, port = ("rebin_compact.cu", "rps_rebin_compact",
+                                           compact_parts, ("full",),
+                                           rebin_compact)
+    else:
+        file, entry, split, exact, port = ("rebin.cu", "rps_rebin", parts,
+                                           ("full", "tile_cols/2"), rebin_planes)
+    out_dir = HERE / "build" / ("compact_parts" if args.k12 else "rebin_parts")
+    libs, resources = build(split((CSRC / file).read_text()), _lib.NVCC_FLAGS, out_dir, file,
+                            entry)
+    record = struct.Struct(_lib.RECORDS[entry] + "0P")
 
     def launch(fn, planes, spec):
         k, (rows, gw, C) = len(planes), planes[0].shape
         out = [torch.empty_like(planes[0]) for _ in range(k)]
         counts = torch.empty(rows * gw, dtype=torch.int32, device=planes[0].device)
         fills = tuple(1e6 if c < 2 else 0.0 for c in range(k))
-        code = fn(record.pack(*_lib.pad8([p.data_ptr() for p in planes]), *(0,) * 18,
-                              *_lib.pad8([o.data_ptr() for o in out]), counts.data_ptr(),
-                              *_lib.pad8(fills), k, spec.gh, gw, C, 0, rows, spec.x_min,
-                              spec.y_min, spec.cell_width, spec.cell_size,
-                              torch.cuda.current_stream().cuda_stream), record.size)
+        ins = _lib.pad8([p.data_ptr() for p in planes])
+        outs = _lib.pad8([o.data_ptr() for o in out])
+        geometry = (spec.x_min, spec.y_min, spec.cell_width, spec.cell_size,
+                    torch.cuda.current_stream().cuda_stream)
+        if args.k12:
+            fields = (*ins, *outs, counts.data_ptr(), *_lib.pad8(fills), k, spec.gh, gw, C)
+        else:
+            fields = (*ins, *(0,) * 18, *outs, counts.data_ptr(), *_lib.pad8(fills), k, spec.gh,
+                      gw, C, 0, rows)
+        code = fn(record.pack(*fields, *geometry), record.size)
         if code:
-            raise RuntimeError(f"rps_rebin: CUDA error {code}")
+            raise RuntimeError(f"{entry}: CUDA error {code}")
         return out, counts
 
     states = {}
@@ -153,20 +190,22 @@ def main() -> int:
     sim.run(300)
     states["50k scene after frame 300"] = (R.predict_planes(sim.state, sim.params),
                                            sim.model.grid)
-    spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
-    p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
-    st2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
-    for _ in range(5):
-        st2 = R.plane_step(st2, p2, spec2)
-    states["1M uniform pack2 C=64"] = (R.predict_planes(st2, p2), spec2)
+    if not args.k12:  # K12 serves variants 2 and 3, which no pair-packed path takes
+        spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
+        p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
+        st2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
+        for _ in range(5):
+            st2 = R.plane_step(st2, p2, spec2)
+        states["1M uniform pack2 C=64"] = (R.predict_planes(st2, p2), spec2)
 
     result = {"card": card, "ptxas": resources}
     for label, (planes, sp) in states.items():
-        want, wc = rebin_planes(planes, sp)
-        for name in ("full", "tile_cols/2"):
+        want, wc = port(planes, sp)
+        for name in exact:
             got, gc = launch(libs[name], planes, sp)
             if not (all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(gc, wc)):
-                raise SystemExit(f"profile_rebin: {name} differs from K1 on {label}")
+                raise SystemExit(f"profile_rebin: {name} differs from the port's kernel on "
+                                 f"{label}")
         result[label] = {name: statistics.median(device_ms(lambda: launch(fn, planes, sp), 50)
                                                  for _ in range(3))
                          for name, fn in libs.items()}

@@ -9,7 +9,9 @@ imports nothing of JAX.  The configurations ``chip_smoke.py`` times:
   * 1M particles, uniform, C=128, after 5 live frames, as the step alone and
     as the rendered frame (``step_and_render``, the step plus the 1080p image
     through the plane rasterizer);
-  * the 50k reference scene (gravity 400) after 300 frames, the same two ways;
+  * the 50k reference scene (gravity 400) after 300 frames, the same two ways,
+    and its step through the lossy full-window rebin (``plane_step(variant=3)``,
+    kernel K12), restarted from the frame-300 state every 60 frames;
   * 1M particles, uniform, pair-packed C=64 (the JAX package's headline
     configuration, bench.py:387-389), the step, restarted every 40 frames;
   * the N-body at 16,384, the flow field at 1M and the attractor at 65,536
@@ -185,6 +187,17 @@ def main() -> int:
     def render_frame_50k():
         sim.state, _ = sim.model.step_and_render(sim.state, sim.params)
 
+    start_v3 = sim.state
+    held_v3 = [start_v3, 0]
+
+    def frame_50k_v3():
+        # Restart every 60 frames, as chip_smoke.py's step_v3 path runs 60
+        # live frames: the lossy rebin drops what overflows a cell.
+        if held_v3[1] % 60 == 0:
+            held_v3[0] = start_v3
+        held_v3[0] = R.plane_step(held_v3[0], sim.params, sim.model.grid, variant=3)
+        held_v3[1] += 1
+
     spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
     p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
     start2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
@@ -208,6 +221,7 @@ def main() -> int:
              "1M uniform C=128, step_and_render": render_frame_1m,
              "50k scene after frame 300": lambda: sim.run(1),
              "50k scene, step_and_render": render_frame_50k,
+             "50k scene, plane_step(variant=3)": frame_50k_v3,
              "1M uniform pack2 C=64, gravity 300": frame_pack2,
              **{f"{m} x {o.n}": (lambda o=o: o.run(1)) for m, o in others.items()}}
     for key, frame in cases.items():

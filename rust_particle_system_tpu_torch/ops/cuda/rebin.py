@@ -34,8 +34,9 @@ input slot it holds and its class for pass X, never the values), and moves
 each value once, from the input planes to its final slot; its ranks come
 from warp ballots and popcounts instead of the TPU's triangular and one-hot
 matmuls.  On the H100 its ranking's instructions and its reads of x/y from L2
-bound it, not device memory (``profile_rebin.py``).  K9 and K12 rank the same
-way, one block per destination cell.
+bound it, not device memory (``profile_rebin.py``).  K9 ranks the same way, one
+block per destination cell; K12 keys each slot once for a tile of adjacent
+flat cells and ranks each cell with one warp (``profile_rebin.py --k12``).
 """
 
 from __future__ import annotations
