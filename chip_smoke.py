@@ -2016,7 +2016,8 @@ def main() -> int:
     # frame_render: the render part of plane_frame is one K4 launch and no
     # other kernel.  Two frames of plane_frame against two of plane_step
     # from the same state, every device row of torch.profiler counted
-    # (kernels, copies, fills); then the launch counts of two frames.
+    # (kernels, copies, fills; not the spans' projections onto the device,
+    # which are no work); then the launch counts of two frames.
     def device_rows(fn) -> collections.Counter:
         fn()
         torch.cuda.synchronize()
@@ -2025,8 +2026,9 @@ def main() -> int:
             fn()
             fn()
             torch.cuda.synchronize()
-        return collections.Counter({ev.key: ev.count for ev in prof.key_averages()
-                                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+        return collections.Counter(ev.name for ev in prof.events()
+                                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                                   and not ev.is_user_annotation)
 
     s_r = sim.state
     with_image = device_rows(lambda: R.plane_frame(s_r, sim.params, model.grid,

@@ -164,8 +164,9 @@ def main() -> int:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
-        return sum(ev.count for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 10
+        return sum(1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.is_user_annotation) / 10
 
     result = {"card": card}
     for label, (ps, prm, sp) in states.items():

@@ -86,15 +86,15 @@ def kernel_rows(torch, frame, frames: int, host_rows: int = 0) -> dict:
         for _ in range(frames):
             frame()
         torch.cuda.synchronize()
-    rows, host = [], []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            host.append([ev.key, ev.self_cpu_time_total / 1e3 / frames, ev.count / frames])
-            continue  # operator rows repeat their kernels' time
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        rows.append([ev.key, us / 1e3 / frames, ev.count / frames])
+    host = [[ev.key, ev.self_cpu_time_total / 1e3 / frames, ev.count / frames]
+            for ev in prof.key_averages()  # operator rows repeat their kernels' time
+            if ev.device_type != torch.autograd.DeviceType.CUDA]
+    dev = {}  # the spans' projections onto the device are no rows of work
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            us, n = dev.get(ev.name, (0.0, 0))
+            dev[ev.name] = (us + ev.time_range.end - ev.time_range.start, n + 1)
+    rows = [[name, us / 1e3 / frames, n / frames] for name, (us, n) in dev.items()]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:

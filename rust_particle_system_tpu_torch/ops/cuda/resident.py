@@ -12,6 +12,12 @@ the plane render K4), ``render_plane_state`` and ``to_particle_state``.
 
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
+
+Each frame is one ``sph.frame`` span, its phases spans inside it
+(:func:`~...runtime.profiling.span`: ``sph.count``, ``sph.predict``,
+``sph.rebin``, ``sph.defer``, ``sph.density``, ``sph.pressure``, ``sph.force``,
+``sph.tail``, ``sph.render``), so a profile of the frame splits its device
+time by phase; with no profiler recording each is one shared no-op.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ...core import kernels as K
 from ...core.params import SimParams, f32_mul
 from ...core.state import ParticleState
 from ...render.splat_planes import WHITE, drifted_patch_margin, raster_planes, render_geometry
+from ...runtime.profiling import span
 from ..grid import GridSpec, build_grid, cell_index
 from .plane_build import cell_planes_aos
 from .rebin import SENTINEL, check_variant, rebin_planes
@@ -213,13 +220,19 @@ def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: b
     Returns the new (px, py, vx, vy, idsf) planes and the walk x plane
     (deferred slots parked)."""
     npx, npy, nvx0, nvy0, nidsf = rebinned
-    fpx, fpy = walk_positions(npx, npy, spec, row0) if defer else (npx, npy)
+    fpx, fpy = npx, npy
+    if defer:
+        with span("sph.defer"):
+            fpx, fpy = walk_positions(npx, npy, spec, row0)
     if fuse_tail and defer:
         out = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec, params, halo)
     else:
         nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params, halo)
-        out = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params)
-    return (*out, torch.where(npx < 0.5 * SENTINEL, nidsf, 0.0)), fpx
+        with span("sph.tail"):
+            out = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params)
+    with span("sph.count"):
+        idsf = torch.where(npx < 0.5 * SENTINEL, nidsf, 0.0)
+    return (*out, idsf), fpx
 
 
 def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
@@ -234,13 +247,19 @@ def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
     and are DEFERRED — parked out of the force walks for the frame (gravity +
     integrate + bounce only).  Variants 2-4 drop what does not fit (``lost``
     grows by it), defer nothing and take the raw walk and the torch tail."""
-    live_before = ps.live.sum(dtype=torch.int32)
-    rebinned, counts = rebin_planes(predict_planes(ps, params), spec, variant=variant)
-    kept = counts.clamp_max(spec.capacity).sum(dtype=torch.int32)
+    with span("sph.count"):
+        live_before = ps.live.sum(dtype=torch.int32)
+    with span("sph.predict"):
+        chans = predict_planes(ps, params)
+    with span("sph.rebin"):
+        rebinned, counts = rebin_planes(chans, spec, variant=variant)
+    del chans  # four predicted planes, not to be held through the walks
+    with span("sph.count"):
+        lost = ps.lost + (live_before - counts.clamp_max(spec.capacity).sum(dtype=torch.int32))
     (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(
         rebinned, spec, params, fuse_tail, defer=variant in (5, 6))
     return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2, idsf=idsf, frame=ps.frame,
-                      lost=ps.lost + (live_before - kept), n=ps.n)
+                      lost=lost, n=ps.n)
 
 
 def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
@@ -248,6 +267,13 @@ def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
     """Warm-up-honouring full frame: physics once ``frame >= shader_delay``.
     ``variant`` is the rebin's (see :func:`plane_physics`); any other than
     2-6 raises ValueError."""
+    with span("sph.frame", ps.frame):
+        return _step(ps, params, spec, fuse_tail, variant)
+
+
+def _step(ps: PlaneState, params: SimParams, spec: GridSpec, fuse_tail: bool,
+          variant: int) -> PlaneState:
+    """:func:`plane_step` inside a frame's span."""
     check_variant(variant)
     if ps.frame >= params.shader_delay:
         stepped = plane_physics(ps, params, spec, fuse_tail, variant)
@@ -268,13 +294,15 @@ def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
     instead of clipped; ``patch_margin`` asks for a wider patch.  Colours are
     the energy ramp (sum rule 1), in warm-up too, as in JAX.  ``fuse_tail``
     and ``variant`` as in :func:`plane_step`."""
-    new = plane_step(ps, params, spec, fuse_tail, variant)
-    geometry = render_geometry(
-        bounds_static, spec, render_spec,
-        drifted_patch_margin(spec, render_spec, bounds_static, patch_margin),
-        params.particle_size)
-    image = raster_planes(new.px, new.py, new.vx, new.vy, geometry, params.max_energy,
-                          color_sum=1.0, clamp_drift=True)
+    with span("sph.frame", ps.frame):
+        new = _step(ps, params, spec, fuse_tail, variant)
+        with span("sph.render"):
+            geometry = render_geometry(
+                bounds_static, spec, render_spec,
+                drifted_patch_margin(spec, render_spec, bounds_static, patch_margin),
+                params.particle_size)
+            image = raster_planes(new.px, new.py, new.vx, new.vy, geometry,
+                                  params.max_energy, color_sum=1.0, clamp_drift=True)
     return new, image
 
 
@@ -285,10 +313,11 @@ def render_plane_state(ps: PlaneState, params: SimParams, spec: GridSpec,
     draw white (sum rule 3), later ones the energy ramp (sum rule 1); the
     choice is made from the host-side frame counter, so nothing is read
     back."""
-    geometry = render_geometry(bounds_static, spec, render_spec,
-                               drifted_patch_margin(spec, render_spec, bounds_static),
-                               params.particle_size)
     warm = ps.frame <= params.shader_delay
-    return raster_planes(ps.px, ps.py, ps.vx, ps.vy, geometry, params.max_energy,
-                         colors=WHITE if warm else None, color_sum=3.0 if warm else 1.0,
-                         clamp_drift=True)
+    with span("sph.render"):
+        geometry = render_geometry(bounds_static, spec, render_spec,
+                                   drifted_patch_margin(spec, render_spec, bounds_static),
+                                   params.particle_size)
+        return raster_planes(ps.px, ps.py, ps.vx, ps.vy, geometry, params.max_energy,
+                             colors=WHITE if warm else None,
+                             color_sum=3.0 if warm else 1.0, clamp_drift=True)

@@ -13,11 +13,15 @@ band-sharded mesh: a callable ``(planes, fills) -> planes`` that returns each
 takes every plane of one exchange at once (JAX's callback takes one), so the
 mesh sends one buffer per direction for each.  The walks then serve the own
 rows only; ``None`` (one device) walks the planes as they are.
+
+The walks run under the frame's ``sph.density`` and ``sph.force`` spans, the
+pressure terms (with their ghost rows) under ``sph.pressure``.
 """
 
 from __future__ import annotations
 
 from ...core.params import SimParams
+from ...runtime.profiling import span
 from ..grid import GridSpec
 from .rebin import SENTINEL
 from .sph import (density_pairs, density_planes, force_pairs, force_pairs_integrated,
@@ -39,9 +43,12 @@ def _neighbour_side(pxg, pyg, vxg, vyg, spec: GridSpec, params: SimParams, halo)
     density = _walks(spec)[0]
     ghost = halo is not None
     grown = (lambda planes, fills: list(planes)) if halo is None else halo
-    wx, wy, wvx, wvy = grown((pxg, pyg, vxg, vyg), (SENTINEL, SENTINEL, 0.0, 0.0))
-    P1, NPo, NPn = pressure_terms(*density(wx, wy, params, ghost=ghost), params)
-    P1, NPn = grown((P1, NPn), (0.0, 0.0))
+    with span("sph.density"):
+        wx, wy, wvx, wvy = grown((pxg, pyg, vxg, vyg), (SENTINEL, SENTINEL, 0.0, 0.0))
+        walked = density(wx, wy, params, ghost=ghost)
+    with span("sph.pressure"):
+        P1, NPo, NPn = pressure_terms(*walked, params)
+        P1, NPn = grown((P1, NPn), (0.0, 0.0))
     return (wx, wy, P1, NPn, wvx, wvy), NPo
 
 
@@ -52,7 +59,8 @@ def _forces_from_cells(pxg, pyg, vxg, vyg, npx, npy, spec: GridSpec,
     (``pxg``/``pyg`` park deferred slots).  Returns the FINAL (px, py, vx, vy)
     planes."""
     nbr, NPo = _neighbour_side(pxg, pyg, vxg, vyg, spec, params, halo)
-    return _walks(spec)[1](*nbr, NPo, npx, npy, params, ghost=halo is not None)
+    with span("sph.force"):
+        return _walks(spec)[1](*nbr, NPo, npx, npy, params, ghost=halo is not None)
 
 
 def _velocities_from_cells(pxg, pyg, vxg, vyg, spec: GridSpec, params: SimParams,
@@ -62,6 +70,7 @@ def _velocities_from_cells(pxg, pyg, vxg, vyg, spec: GridSpec, params: SimParams
     ``v + f*dt + fv*vscale``.  Returns (nvx, nvy); values at slots whose walk
     position is parked are meaningless (the caller restores or parks them)."""
     nbr, NPo = _neighbour_side(pxg, pyg, vxg, vyg, spec, params, halo)
-    fx, fy, fvx, fvy = _walks(spec)[2](*nbr, NPo, params, ghost=halo is not None)
-    dt, vscale = params.dt, force_scalars(params)[3]
-    return vxg + fx * dt + fvx * vscale, vyg + fy * dt + fvy * vscale
+    with span("sph.force"):
+        fx, fy, fvx, fvy = _walks(spec)[2](*nbr, NPo, params, ghost=halo is not None)
+        dt, vscale = params.dt, force_scalars(params)[3]
+        return vxg + fx * dt + fvx * vscale, vyg + fy * dt + fvy * vscale

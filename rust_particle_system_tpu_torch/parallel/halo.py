@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..runtime.profiling import span
 from .mesh import BandMesh
 
 
@@ -23,7 +24,7 @@ def exchange_halo(top, bottom, mesh: BandMesh):
     (its rows next to the band below) down; return ``(lo, hi)``: the band
     below's ``top`` and the band above's ``bottom``, ``None`` past the mesh's
     edges.  A ``None`` payload is neither sent nor received; every band passes
-    payloads of the same shapes, or the same ``None``s."""
+    payloads of the same shapes, or the same ``None``s.  A ``sph.halo`` span."""
     up, down = mesh.rank + 1, mesh.rank - 1
     wire = mesh.wire
     ops, lo, hi = [], None, None
@@ -36,21 +37,22 @@ def exchange_halo(top, bottom, mesh: BandMesh):
         ops.append(dist.P2POp(dist.irecv, buf, peer, mesh.group))
         return buf
 
-    if up < mesh.size:
-        if top is not None:
-            send(top, up)
-        if bottom is not None:
-            hi = recv(bottom, up)
-    if down >= 0:
-        if bottom is not None:
-            send(bottom, down)
-        if top is not None:
-            lo = recv(top, down)
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return (None if lo is None else lo.to(mesh.device),
-            None if hi is None else hi.to(mesh.device))
+    with span("sph.halo"):
+        if up < mesh.size:
+            if top is not None:
+                send(top, up)
+            if bottom is not None:
+                hi = recv(bottom, up)
+        if down >= 0:
+            if bottom is not None:
+                send(bottom, down)
+            if top is not None:
+                lo = recv(top, down)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return (None if lo is None else lo.to(mesh.device),
+                None if hi is None else hi.to(mesh.device))
 
 
 def _rows(planes, r: int) -> torch.Tensor:

@@ -35,6 +35,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ..runtime.profiling import span
+
 BACKENDS = ("gloo", "nccl")
 
 
@@ -57,10 +59,12 @@ class BandMesh:
         return torch.device("cpu") if self.backend == "gloo" else self.device
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the bands, on this rank's device."""
-        buf = t.to(self.wire)
-        dist.all_reduce(buf, group=self.group)
-        return buf.to(self.device)
+        """The sum of ``t`` over the bands, on this rank's device (a
+        ``sph.reduce`` span)."""
+        with span("sph.reduce"):
+            buf = t.to(self.wire)
+            dist.all_reduce(buf, group=self.group)
+            return buf.to(self.device)
 
 
 def make_band_mesh(device="cuda", group=None) -> BandMesh:

@@ -22,6 +22,10 @@ Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
 5. the pressure terms' ghost rows, force walk + tail    one exchange
 6. diagnostics                                          one int32 all_reduce
 
+The phases run under the spans of ``plane_step`` (``sph.frame``, ``sph.count``,
+``sph.predict``, ``sph.rebin``, ...); each exchange is a ``sph.halo`` span and
+each all_reduce a ``sph.reduce`` span inside them.
+
 On one card the 4-band step equals :func:`~..ops.cuda.resident.plane_step` on
 the same grid bit for bit: K7 is bit-equal to K1's rows (and the variant-5
 passes to K1's output), the walks stage each
@@ -41,6 +45,7 @@ from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band,
 from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
 from ..render.splat import splat_resolve
 from ..render.splat_planes import MARGIN, accumulators, raster_planes, render_geometry
+from ..runtime.profiling import span
 from .halo import edge_rows, exchange_halo, halo_rows, rebin_halo
 from .mesh import BandMesh
 
@@ -80,19 +85,23 @@ def _local_plane_physics(ps: PlaneState, params, spec, mesh: BandMesh,
     slab state and the diagnostics' per-band int32 counts."""
     R = ps.px.shape[0]
     row0 = mesh.rank * R
-    live_before = ps.live.sum(dtype=torch.int32)
-    chans = predict_planes(ps, params)
-    if rebin_variant == 5:
-        rebinned = _rebin_v5_band(chans, spec, row0, mesh)
-    else:
-        rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
-                                        *rebin_halo(chans, FILLS, mesh))
+    with span("sph.count"):
+        live_before = ps.live.sum(dtype=torch.int32)
+    with span("sph.predict"):
+        chans = predict_planes(ps, params)
+    with span("sph.rebin"):
+        if rebin_variant == 5:
+            rebinned = _rebin_v5_band(chans, spec, row0, mesh)
+        else:
+            rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
+                                            *rebin_halo(chans, FILLS, mesh))
     planes, fpx = walk_and_integrate(rebinned, spec, params, fuse_tail, row0,
                                      functools.partial(halo_rows, mesh=mesh))
-    live = planes[0] < 0.5 * SENTINEL
-    deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)
-    new = PlaneState(*planes, frame=ps.frame, lost=ps.lost, n=ps.n)
-    return new, torch.stack([live_before, live.sum(dtype=torch.int32), deferred])
+    with span("sph.count"):
+        live = planes[0] < 0.5 * SENTINEL
+        deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)
+        counts = torch.stack([live_before, live.sum(dtype=torch.int32), deferred])
+    return PlaneState(*planes, frame=ps.frame, lost=ps.lost, n=ps.n), counts
 
 
 def check_plane_diags(diags: torch.Tensor, expect_particles: int | None = None) -> dict:
@@ -125,22 +134,35 @@ def make_plane_sharded_step(spec, mesh: BandMesh, rebin_variant: int = 6,
     returned across band boundaries), which give the same planes bit for bit;
     any other raises ValueError (JAX runs 5 for any other than 6).  The
     warm-up gate reads the host-side frame counter, as ``plane_step`` does."""
+    local = _band_step(spec, mesh, rebin_variant, fuse_tail)
+
+    def step(ps: PlaneState, params):
+        with span("sph.frame", ps.frame):
+            return local(ps, params)
+
+    return step
+
+
+def _band_step(spec, mesh: BandMesh, rebin_variant: int, fuse_tail: bool):
+    """:func:`make_plane_sharded_step`'s step without the frame's span, for
+    the frames that hold it."""
     if rebin_variant not in (5, 6):
         raise ValueError(f"the sharded step runs rebin variant 5 or 6, not {rebin_variant}")
     if spec.gh % mesh.size:
         raise ValueError(f"gh={spec.gh} must divide by {mesh.size} bands; build the "
                          f"grid with parallel.shard.make_shard_spec")
 
-    def step(ps: PlaneState, params):
+    def local(ps: PlaneState, params):
         if ps.frame >= params.shader_delay:
             new, counts = _local_plane_physics(ps, params, spec, mesh, fuse_tail,
                                                rebin_variant)
         else:
-            new, live = ps, ps.live.sum(dtype=torch.int32)
-            counts = torch.stack([live, live, torch.zeros_like(live)])
+            with span("sph.count"):
+                new, live = ps, ps.live.sum(dtype=torch.int32)
+                counts = torch.stack([live, live, torch.zeros_like(live)])
         return dataclasses.replace(new, frame=ps.frame + 1), mesh.all_reduce(counts)
 
-    return step
+    return local
 
 
 def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
@@ -155,25 +177,27 @@ def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
     sweeps the whole grid on every band (a row-window K4 is not written yet).
     As in JAX: margin 4, drift clamped, ramp colours summing to 1 with blue
     rebuilt before the sum (linear, so the sum is unchanged)."""
-    step = make_plane_sharded_step(spec, mesh, rebin_variant, fuse_tail)
+    step = _band_step(spec, mesh, rebin_variant, fuse_tail)
     R = spec.gh // mesh.size
     rows = slice(mesh.rank * R, (mesh.rank + 1) * R)
 
     def frame(ps: PlaneState, params):
-        new, diags = step(ps, params)
-        full = []
-        for p, f in zip((new.px, new.py, new.vx, new.vy), FILLS):
-            plane = torch.full((spec.gh, spec.gw, spec.capacity), f, dtype=p.dtype,
-                               device=p.device)
-            plane[rows] = p
-            full.append(plane)
-        geometry = render_geometry(bounds_static, spec, render_spec, MARGIN,
-                                   params.particle_size)
-        rgb, alpha = accumulators(
-            raster_planes(*full, geometry, params.max_energy, color_sum=1.0,
-                          clamp_drift=True, background=None), 1.0)
-        acc = mesh.all_reduce(torch.cat([rgb, alpha[..., None]], dim=-1))
-        image = splat_resolve(acc[..., :3], acc[..., 3], (0.0, 0.0, 0.0, 1.0))
+        with span("sph.frame", ps.frame):
+            new, diags = step(ps, params)
+            with span("sph.render"):
+                full = []
+                for p, f in zip((new.px, new.py, new.vx, new.vy), FILLS):
+                    plane = torch.full((spec.gh, spec.gw, spec.capacity), f,
+                                       dtype=p.dtype, device=p.device)
+                    plane[rows] = p
+                    full.append(plane)
+                geometry = render_geometry(bounds_static, spec, render_spec, MARGIN,
+                                           params.particle_size)
+                rgb, alpha = accumulators(
+                    raster_planes(*full, geometry, params.max_energy, color_sum=1.0,
+                                  clamp_drift=True, background=None), 1.0)
+                acc = mesh.all_reduce(torch.cat([rgb, alpha[..., None]], dim=-1))
+                image = splat_resolve(acc[..., :3], acc[..., 3], (0.0, 0.0, 0.0, 1.0))
         return new, image, diags
 
     return frame

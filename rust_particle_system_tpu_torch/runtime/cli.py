@@ -15,12 +15,15 @@ Counterpart of ``rust_particle_system_tpu/runtime/cli.py``:
 ``--resume`` loads a checkpoint written by the JAX package's
 ``runtime/checkpoint.save`` for the same model family (see ``interop.py``);
 ``--save`` writes one that it reads back.  ``--render`` writes the final frame
-as an sRGB PNG.
+as an sRGB PNG.  ``--profile DIR`` records the run with ``torch.profiler``
+(``runtime/profiling.trace``) and writes ``DIR/trace.json``, a Chrome trace
+whose ``sph.*`` spans mark each frame and its phases.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -32,6 +35,7 @@ from ..models.sph import BACKENDS as SPH_BACKENDS
 from ..ops.cuda.resident import PlaneState
 from ..render import to_srgb_u8
 from ..utils.png import write_png
+from .profiling import trace
 from .simulation import Simulation
 
 NOT_PORTED = {
@@ -81,6 +85,9 @@ def main(argv=None) -> int:
     ap.add_argument("--save", default=None,
                     help="write the final checkpoint (.npz, JAX layout) here")
     ap.add_argument("--render", default=None, help="write the final frame (PNG) here")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="record a torch.profiler trace of the run into DIR/trace.json "
+                         "(chrome://tracing or Perfetto open it)")
     for flag in NOT_PORTED:
         ap.add_argument(f"--{flag}", default=None, help="not yet ported")
     args = ap.parse_args(argv)
@@ -124,10 +131,13 @@ def main(argv=None) -> int:
         sim.update_params(**overrides)
 
     t0 = time.perf_counter()
-    sim.run(args.frames)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
+    with (trace(args.profile) if args.profile else contextlib.nullcontext()):
+        sim.run(args.frames)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    if args.profile:
+        print(f"profiler trace -> {args.profile}")
     rate = args.frames * sim.n / max(elapsed, 1e-9)
     print(f"{args.model}: {args.frames} frames x {sim.n} particles on {model.device} in "
           f"{elapsed:.2f}s ({rate:,.0f} particle-steps/s, incl. kernel build)")

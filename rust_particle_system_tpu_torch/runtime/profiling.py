@@ -1,9 +1,12 @@
-"""Profiling helpers: a ``torch.profiler`` trace of any window, a phase timer
-for host loops, and the card's kernel time of a call.
+"""Profiling helpers: a ``torch.profiler`` trace of any window, the program's
+spans in it, a phase timer for host loops, and the card's kernel time of a
+call.
 
 Counterpart of ``rust_particle_system_tpu/runtime/profiling.py`` (which wraps
 ``jax.profiler``).  ``trace`` writes a Chrome trace (``chrome://tracing`` or
-Perfetto open it); its kernel rows are the device's own times.
+Perfetto open it); its kernel rows are the device's own times, and the
+frame's phases (:func:`span`) appear in it as ranges on the host, each kernel
+linked to the host call that launched it.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import time
 from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 
 def _activities() -> list:
@@ -37,21 +41,46 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+class _NoSpan:
+    """The span while no profiler records: enters and leaves doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, frame: int | None = None):
+    """A context manager around one phase of the program (``sph.predict``,
+    ``sph.rebin``, ...).  While a ``torch.profiler`` profile records (as under
+    :func:`trace`), it is ``record_function(name)``, on the profiler's clock
+    with the CUDA rows it launches, ``frame`` as its argument where given;
+    otherwise the one shared no-op, so the frame pays no allocation, no
+    dispatcher call and no device work for it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(name, None if frame is None else str(frame))
+
+
 def device_ms(fn, reps: int) -> float:
     """Milliseconds per call of the card's kernel time, by torch.profiler:
-    the sum of the CUDA kernel rows over ``reps`` calls (after one warm
-    call), so a host-bound call reads its device work, not its enqueue."""
+    the sum of the CUDA rows over ``reps`` calls (after one warm call), so a
+    host-bound call reads its device work, not its enqueue.  The spans'
+    projections onto the device are not rows of work and are left out."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
     return us / 1e3 / reps
 
 
