@@ -33,6 +33,8 @@ line each:
      1M state with and without forced deferrals and on the strip walks'
      edges (a width that is not a multiple of the strip, cells with all C
      slots live, an empty strip beside air rows, C = 32, 64, 40 and 1024);
+     K2's pressure epilogue (the frame's density walk) bit-equal to
+     pressure_terms of K2's planes, timed beside K2 and that composition;
      the unfused tail (K3b) against the fused one (K3); K4, the plane render
      (world planes in, image out), on the 1080p image of the stepped state,
      the 50k scene and a geometry the JAX package sends to its v1 rasterizer
@@ -46,7 +48,8 @@ line each:
      three walks on a 1M uniform pair-packed state (C=64, the JAX package's
      headline configuration, bench.py:387-389) with forced deferrals, at C=32
      and on an odd-width grid, and bit-equal to K2/K3/K3b on the same C=64
-     planes (K6 launches their strip walk); K8
+     planes (K6 launches their strip walk), its pressure epilogue bit-equal
+     to pressure_terms of its planes; K8
      at n = 16,384, 16,383, 1000, 31 and 1, coincident particles included,
      two launches bit-equal; K11 (the
      cell-binned splat) at 1080p, capacity 64, rtol/atol 1e-4 with equal
@@ -375,8 +378,8 @@ def kernel_counters() -> dict:
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
         hole_fill_pass, rebin_compact, rebin_planes, rebin_planes_band)
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
-        density_pairs, density_planes, force_pairs, force_pairs_integrated, force_planes,
-        force_planes_integrated)
+        density_pairs, density_planes, density_pressure_pairs, density_pressure_planes,
+        force_pairs, force_pairs_integrated, force_planes, force_planes_integrated)
     from rust_particle_system_tpu_torch.ops.cuda.fast_forces import evaluate, moments
     from rust_particle_system_tpu_torch.ops.cuda.fastmode_c128 import a_dot, a_vpu, c_vpu
     from rust_particle_system_tpu_torch.ops.cuda.toolchain_probe import (
@@ -384,9 +387,10 @@ def kernel_counters() -> dict:
     from rust_particle_system_tpu_torch.render.splat_cells import raster_cells
     from rust_particle_system_tpu_torch.render.splat_planes import raster_planes
 
-    return {"K1": rebin_planes, "K2": density_planes, "K3": force_planes_integrated,
-            "K3b": force_planes, "K4": raster_planes, "K5": cell_planes_aos,
-            "K6d": density_pairs, "K6f": force_pairs_integrated, "K6r": force_pairs,
+    return {"K1": rebin_planes, "K2": density_planes, "K2p": density_pressure_planes,
+            "K3": force_planes_integrated, "K3b": force_planes, "K4": raster_planes,
+            "K5": cell_planes_aos, "K6d": density_pairs, "K6p": density_pressure_pairs,
+            "K6f": force_pairs_integrated, "K6r": force_pairs,
             "K7": rebin_planes_band, "K8": nbody_accel, "K9": hole_fill_pass,
             "K11": raster_cells, "K12": rebin_compact, "K13a": dot_f32, "K13b": dot_tf32,
             "K13c": copy_ids, "K13d": bf16_broadcast, "K13e": bf16_outer, "K14a": moments,
@@ -656,7 +660,7 @@ def mesh_worlds(paths: dict, card: str) -> dict:
         launches = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
         paths[label] = launches
         frames = margs[3] + margs[4] + int(margs[5])
-        walks = ("K6d", "K6f", "K6r") if margs[2] else ("K2", "K3", "K3b")
+        walks = ("K6p", "K6f", "K6r") if margs[2] else ("K2p", "K3", "K3b")
         rebins = ({"K7": n_bands * frames, "K9": 0} if margs[7] == 6
                   else {"K7": 0, "K9": 2 * n_bands * frames})
         require(all(launches[k] == v for k, v in rebins.items()) and launches["K1"] == 0
@@ -719,10 +723,10 @@ def main() -> int:
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
     from rust_particle_system_tpu_torch.ops.cuda.sph import (
-        density_pairs, density_planes, density_planes_plain, density_scalars,
-        force_pairs, force_pairs_integrated, force_planes, force_planes_integrated,
-        force_planes_integrated_plain, force_planes_plain, force_scalars,
-        pressure_terms)
+        density_pairs, density_planes, density_planes_plain, density_pressure_pairs,
+        density_pressure_planes, density_scalars, force_pairs, force_pairs_integrated,
+        force_planes, force_planes_integrated, force_planes_integrated_plain,
+        force_planes_plain, force_scalars, pressure_terms)
     from rust_particle_system_tpu_torch.ops.grid import GridSpec, build_grid
     from rust_particle_system_tpu_torch.ops.grid_step import grid_physics, grid_step
     from rust_particle_system_tpu_torch.ops.reference_step import reference_step
@@ -1146,6 +1150,23 @@ def main() -> int:
            cuda_ms(lambda: density_planes_plain(fpx, fpy, *density_scalars(params)), 2),
            nbytes(fpx, fpy, rho, rhon), pairs_1m * OPS_DENSITY_PAIR)
     print(f"phase 2: K2 within rtol 1e-5 on {int((fpx < 5e5).sum())} walk slots")
+    # K2 with its pressure epilogue (the frame's density walk): bit for bit
+    # pressure_terms of K2's planes, timed in turns with K2 and with that
+    # composition.
+    bits = lambda t: t.view(torch.int32)
+    composed = lambda: pressure_terms(*density_planes(fpx, fpy, params), params)
+    require(all(torch.equal(bits(a_), bits(b_)) for a_, b_ in
+                zip(density_pressure_planes(fpx, fpy, params), composed())),
+            "K2's pressure epilogue differs from pressure_terms of K2's planes")
+    k2p_calls = {"K2": lambda: density_planes(fpx, fpy, params),
+                 "K2 + pressure epilogue": lambda: density_pressure_planes(fpx, fpy, params),
+                 "K2 + pressure_terms": composed}
+    k2p_ms = {k: [] for k in k2p_calls}
+    for order in (list(k2p_calls), list(k2p_calls)[::-1]):
+        for k in order:
+            k2p_ms[k].append(cuda_ms(k2p_calls[k], 20))
+    print(f"phase 2: K2's pressure epilogue bit-equal to pressure_terms of K2's planes at "
+          f"the main-path shape; ms in turns {json.dumps(k2p_ms)} [{card}]")
 
     fargs = fused_inputs(density_planes, npx, npy, nvx0, nvy0, spec, params)
     k3_err, _ = check_fused("K3", force_planes_integrated, fargs, params)
@@ -1469,6 +1490,9 @@ def main() -> int:
     same6 = lambda a_, b_: all(torch.equal(x, y) for x, y in zip(a_, b_))
     require(same6((rho2, rhon2), density_planes(wx, wy, p2)),
             "K6 density differs from K2 on the same C=64 planes")
+    require(all(torch.equal(bits(x), bits(y)) for x, y in
+                zip(density_pressure_pairs(wx, wy, p2), pressure_terms(rho2, rhon2, p2))),
+            "K6's pressure epilogue differs from pressure_terms of K6's planes")
     require(same6(force_pairs_integrated(*fargs2, p2), force_planes_integrated(*fargs2, p2)),
             "K6 fused walk differs from K3 on the same C=64 planes")
     require(same6(force_pairs(*fargs2[:7], p2), force_planes(*fargs2[:7], p2)),
@@ -1511,7 +1535,8 @@ def main() -> int:
     print(f"phase 2: K6 (1M pair-packed C=64, {pairs2} window pairs) density "
           f"{k6d_err:.2e}, fused {max(k6f_err, k6f_err_d):.2e} ({n_def2} forced "
           f"deferrals), raw {k6r_err:.2e}, also at C=32 and odd gw; bit-equal to K2/K3/K3b "
-          f"at C=64; ms in turns {json.dumps(pair_ms)} [{card}]")
+          f"at C=64, its pressure epilogue to pressure_terms of its planes; ms in turns "
+          f"{json.dumps(pair_ms)} [{card}]")
 
     # K8: the N-body disc at n = 16,384 (BASELINE.json config 3) and 1000, and
     # 1000 particles of which 500 share one point.  Bar: the JAX test's rtol
@@ -2004,7 +2029,8 @@ def main() -> int:
     require(tuple(img.shape) == (1080, 1920, 4) and bool(torch.isfinite(img).all()),
             "step_and_render image")
     launches = read("scene")
-    require(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+    require(all(launches[k] > 0 for k in ("K1", "K2p", "K3", "K4", "K5"))
+            and launches["K2"] == 0,
             f"a kernel of the scene path never launched: {launches}")
     ms50 = cuda_ms(lambda: sim.run(1), 100)
     print(f"phase 3: 50k x 300 frames ok (lost 0, live 50000, y {y_start:.1f} -> "
@@ -2058,7 +2084,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = read("cli")
     require(rc == 0, f"cli exited {rc}")
-    require(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+    require(all(launches[k] > 0 for k in ("K1", "K2p", "K3", "K4", "K5")),
             f"a kernel of the cli path never launched: {launches}")
     got = read_png(png)
     want = to_srgb_u8(img300).cpu().numpy()
@@ -2115,8 +2141,8 @@ def main() -> int:
         sq, imgp = mp.step_and_render(sq, simp.params)
     torch.cuda.synchronize()
     launches = read("pack2")
-    require(all(launches[k] > 0 for k in ("K1", "K4", "K5", "K6d", "K6f"))
-            and launches["K2"] == launches["K3"] == launches["K3b"] == 0,
+    require(all(launches[k] > 0 for k in ("K1", "K4", "K5", "K6p", "K6f"))
+            and launches["K2p"] == launches["K3"] == launches["K3b"] == 0,
             f"the pack2 path did not run K6 in place of K2/K3: {launches}")
     require(int(sq.lost) == 0 and int(sq.live.sum()) == 200_000
             and bool(torch.isfinite(imgp).all()), "pack2 step_and_render frames")
@@ -2151,7 +2177,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = read("step_v5")
     require(launches["K9"] == 8 and launches["K1"] == launches["K7"] == launches["K12"] == 0
-            and launches["K2"] == launches["K3"] == 4,
+            and launches["K2p"] == launches["K3"] == 4,
             f"the variant-5 path did not run K9 in place of K1: {launches}")
     require(int(s5.lost) == 0 and int(s5.live.sum()) == N_1M, "variant 5 lost particles")
     reset()
@@ -2352,12 +2378,13 @@ def main() -> int:
 
     mesh_ms = mesh_worlds(paths, card)
 
-    for k in ("K1", "K2", "K3", "K4", "K5"):
+    for k in ("K1", "K3", "K4", "K5"):
         rows[k]["launches"] = paths["scene"][k]
+    rows["K2"]["launches"] = paths["scene"]["K2"] + paths["scene"]["K2p"]
     rows["K7"]["launches"] = paths["mesh_gloo"]["K7"]
     rows["K3b"]["launches"] = paths["unfused"]["K3b"]
     rows["K10"]["launches"] = paths["v1"]["K4"]
-    rows["K6d"]["launches"] = paths["pack2"]["K6d"]
+    rows["K6d"]["launches"] = paths["pack2"]["K6d"] + paths["pack2"]["K6p"]
     rows["K6f"]["launches"] = paths["pack2"]["K6f"]
     rows["K6r"]["launches"] = paths["pack2_unfused"]["K6r"]
     rows["K8"]["launches"] = paths["nbody"]["K8"]
@@ -2524,7 +2551,7 @@ def main() -> int:
             **result, "card": card, "build_s": build_s, "ms_per_frame_50k": ms50,
             "ms_per_frame_1m": ms1m, "ms_render_1m": ms_render,
             "ms_step_and_render_1m": ms_fused, "scene_300_s": scene_s,
-            "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms,
+            "ms_per_frame_1m_c64": ms64, "ms_walks_c64": pair_ms, "ms_k2_pressure": k2p_ms,
             "ms_per_frame_models": ms_models, "ms_mesh": mesh_ms, "paths": paths,
             "ms_rebin_1m": rebin_ms, "device_ms_rebin_1m": rebin_dev,
             "ms_per_frame_1m_by_variant": step_ms, "ms_image_1080p": splat_ms,

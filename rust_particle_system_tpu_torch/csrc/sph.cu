@@ -4,7 +4,8 @@
 // [gh, gw, C] cell planes.
 //
 // Replace rust_particle_system_tpu/ops/pallas/sph.py::_make_seg_kernel with
-// _density_update (via density_planes), with _force_update +
+// _density_update (via density_planes, and with the pressure terms after it
+// via density_pressure_planes), with _force_update +
 // _force_finalize_integrated (via force_planes_integrated) and with
 // _force_update + _force_finalize (via force_planes): n_dx=3 for the classic
 // layout (K2, K3, K3b), n_dx=2 for the pair-packed one (K6, driven by
@@ -13,7 +14,13 @@
 // What they compute, per own slot i, over the 3x3 neighbour cells j (self
 // included; sentinel-parked slots contribute exactly 0 and are skipped):
 //   K2   rho = dnorm * sum v^2, rhon = nnorm * sum v^3, v = max(h - d, 0)
-//        (sph.py:295-310).  Slots whose walk position is parked get 0.
+//        (sph.py:295-310).  Slots whose walk position is parked get 0.  The
+//        same walk with the pressure epilogue writes the force walk's
+//        per-slot terms from rho and rhon in registers instead (the port's
+//        ops/cuda/sph.py::pressure_terms, op by op, so bit for bit):
+//        P1 = alpha p / rho^2, NPo = beta np / rho^2, NPn = beta np / (rho
+//        rhon), guarded for empties, with p = (rho - target) * pmult and
+//        np = rhon * nmult; parked slots get the terms of rho = rhon = 0.
 //   K3   mag = (P1_i + P1_j) v + (NPo_i + NPn_j) v^2 over d = d2 * inv_d, with
 //        the eps guard d2 <= eps2 -> inv_d = 0, d = 0, fy += mag (sph.py:
 //        333-353); viscosity sum u^3, sum v_j u^3 with u = max(h^2 - d2, 0);
@@ -387,7 +394,7 @@ __device__ void stage_tile(const Walk& w, const Strip& st, unsigned char* tile, 
   }
 }
 
-// The strip walk of policy Walk (DensityWalk, ForceWalk<kTail>): block
+// The strip walk of policy Walk (DensityWalk<kPressure>, ForceWalk<kTail>): block
 // (x, y) serves own cells x W .. x W + W - 1 (those inside the grid) of own
 // row r0 + y, W = kStripCells.
 template <class Walk>
@@ -398,12 +405,15 @@ __global__ void __launch_bounds__(kWalkThreads, 3)
   constexpr int nt = kWalkThreads;
   const Strip st = count_window(w.x_plane(), smem + kWalkTile * Walk::kEntry, gh, r0, gw, C);
 
-  // Parked walk slots of the strip's own cells: the epilogue with zero sums.
+  // Parked walk slots of the strip's own cells: the epilogue with zero sums,
+  // whose values a thread forms once (the pressure terms of zero sums take
+  // two divisions).
   const int n_cells = min(kStripCells, gw - st.c0);
+  const typename Walk::Park park = w.park();
   for (int t = threadIdx.x; t < n_cells * C; t += nt) {
     const int k = t / C, s = t - k * C;
     if (!((st.ballot[st.own_chunk(k) + s / 32] >> (s & 31)) & 1u))
-      w.parked(st.walk_offset(k, s), st.own_offset(k, s));
+      w.parked(park, st.walk_offset(k, s), st.own_offset(k, s));
   }
 
   // Walk-live own slots, in rounds of kWalkThreads; each round streams the
@@ -438,12 +448,36 @@ __global__ void __launch_bounds__(kWalkThreads, 3)
   }
 }
 
+// The pressure epilogue's scalars: the target density, the two multipliers,
+// and alpha = -2 dnorm, beta = -3 nnorm as the host forms them in f32.
+struct PressureScalars {
+  float target, pmult, nmult, alpha, beta;
+};
+
+// pressure_terms of one slot, rounded op by op in torch's order (-O3 would
+// contract dnorm * s2 - target and the products into fused multiply-adds).
+__device__ __forceinline__ void pressure_terms(float rho, float rhon, const PressureScalars& k,
+                                               float& P1, float& NPo, float& NPn) {
+  const float rho_safe = rho > 0.0f ? rho : 1.0f;
+  const float rhon_safe = rhon > 0.0f ? rhon : 1.0f;
+  const float inv_rho2 = __fdiv_rn(1.0f, __fmul_rn(rho_safe, rho_safe));
+  const float p = __fmul_rn(__fsub_rn(rho, k.target), k.pmult);
+  const float np = __fmul_rn(rhon, k.nmult);
+  P1 = __fmul_rn(k.alpha, __fmul_rn(p, inv_rho2));
+  NPo = __fmul_rn(k.beta, __fmul_rn(np, inv_rho2));
+  NPn = __fmul_rn(k.beta, __fdiv_rn(np, __fmul_rn(rho_safe, rhon_safe)));
+}
+
+// The density walk; out = (rho, rhon), or with kPressure (P1, NPo, NPn).
+template <bool kPressure>
 struct DensityWalk {
   const float* px;
   const float* py;
-  float* rho;
-  float* rhon;
+  float* out0;
+  float* out1;
+  float* out2;
   float h, dnorm, nnorm;
+  PressureScalars k;
 
   using Entry = float2;
   static constexpr int kEntry = sizeof(float2);
@@ -455,9 +489,26 @@ struct DensityWalk {
   __device__ void store(unsigned char* tile, int e, Entry v) const {
     reinterpret_cast<float2*>(tile)[e] = v;
   }
-  __device__ void parked(size_t, size_t q) const {
-    rho[q] = 0.0f;
-    rhon[q] = 0.0f;
+  __device__ void write(float rho, float rhon, size_t q) const {
+    if constexpr (kPressure) {
+      pressure_terms(rho, rhon, k, out0[q], out1[q], out2[q]);
+    } else {
+      out0[q] = rho;
+      out1[q] = rhon;
+    }
+  }
+  struct Park {  // the outputs of zero sums
+    float a, b, c;
+  };
+  __device__ Park park() const {
+    Park v{0.0f, 0.0f, 0.0f};
+    if constexpr (kPressure) pressure_terms(0.0f, 0.0f, k, v.a, v.b, v.c);
+    return v;
+  }
+  __device__ void parked(const Park& v, size_t, size_t q) const {
+    out0[q] = v.a;
+    out1[q] = v.b;
+    if constexpr (kPressure) out2[q] = v.c;
   }
   __device__ Acc start(size_t o, size_t) const {
     return {__ldg(px + o), __ldg(py + o), 0.0f, 0.0f};
@@ -471,8 +522,7 @@ struct DensityWalk {
     }
   }
   __device__ void finish(const Acc& a, size_t, size_t q) const {
-    rho[q] = dnorm * a.s2;
-    rhon[q] = nnorm * a.s3;
+    write(__fmul_rn(dnorm, a.s2), __fmul_rn(nnorm, a.s3), q);
   }
 };
 
@@ -501,8 +551,10 @@ struct ForceWalk {
     reinterpret_cast<float4*>(tile)[e] = v.a;
     reinterpret_cast<float2*>(tile + sizeof(float4) * kWalkTile)[e] = v.v;
   }
-  __device__ void parked(size_t o, size_t q) const {
-    force_epilogue<kTail>(p, k, ForceSums{}, false, o, q);
+  using Park = ForceSums;  // zero sums; the epilogue reads the slot's own planes
+  __device__ Park park() const { return ForceSums{}; }
+  __device__ void parked(const Park& zero, size_t o, size_t q) const {
+    force_epilogue<kTail>(p, k, zero, false, o, q);
   }
   __device__ Acc start(size_t o, size_t q) const {
     return {{__ldg(p.px + o), __ldg(p.py + o), __ldg(p.P1 + o), __ldg(p.NPo + q)}, {}};
@@ -559,7 +611,29 @@ struct rps_density_args {
 extern "C" int rps_density(const void* packed, int size) {
   rps_density_args a;
   if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
-  const DensityWalk w{a.px, a.py, a.rho, a.rhon, a.h, a.dnorm, a.nnorm};
+  const DensityWalk<false> w{a.px, a.py, a.rho, a.rhon, nullptr, a.h, a.dnorm, a.nnorm, {}};
+  return static_cast<int>(launch_strips(w, a.gh, a.r0, a.R, a.gw, a.C, a.stream));
+}
+
+// The density walk with the pressure epilogue: the same planes and walk
+// scalars, then target, pmult, nmult, alpha, beta.  P1/NPo/NPn: outputs.
+struct rps_density_pressure_args {
+  const float* px;
+  const float* py;
+  float* P1;
+  float* NPo;
+  float* NPn;
+  int gh, r0, R, gw, C;
+  float h, dnorm, nnorm, target, pmult, nmult, alpha, beta;
+  void* stream;
+};
+
+extern "C" int rps_density_pressure(const void* packed, int size) {
+  rps_density_pressure_args a;
+  if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
+  const DensityWalk<true> w{a.px,    a.py,    a.P1,    a.NPo,
+                            a.NPn,   a.h,     a.dnorm, a.nnorm,
+                            {a.target, a.pmult, a.nmult, a.alpha, a.beta}};
   return static_cast<int>(launch_strips(w, a.gh, a.r0, a.R, a.gw, a.C, a.stream));
 }
 
@@ -622,14 +696,19 @@ extern "C" int rps_force(const void* packed, int size) {
       launch_strips(ForceWalk<false>{p, k}, a.gh, a.r0, a.R, a.gw, a.C, a.stream));
 }
 
-// K6: the density, fused and raw walks on the pair-packed layout's planes:
-// the strip walks above, on the same records.
+// K6: the density walk (both epilogues), fused and raw walks on the
+// pair-packed layout's planes: the strip walks above, on the same records.
 using rps_pair_density_args = rps_density_args;
+using rps_pair_density_pressure_args = rps_density_pressure_args;
 using rps_pair_force_integrated_args = rps_force_integrated_args;
 using rps_pair_force_args = rps_force_args;
 
 extern "C" int rps_pair_density(const void* packed, int size) {
   return rps_density(packed, size);
+}
+
+extern "C" int rps_pair_density_pressure(const void* packed, int size) {
+  return rps_density_pressure(packed, size);
 }
 
 extern "C" int rps_pair_force_integrated(const void* packed, int size) {

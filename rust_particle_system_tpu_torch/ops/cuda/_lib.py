@@ -49,6 +49,8 @@ RECORDS = {
     "rps_pair_density": "4P5i3fP",
     "rps_pair_force_integrated": "13P5i9fP",
     "rps_pair_force": "11P5i2fP",
+    "rps_density_pressure": "5P5i8fP",
+    "rps_pair_density_pressure": "5P5i8fP",
     "rps_nbody_accel": "2Pi3fP",
     "rps_splat_planes": "8P12i9f4fP",
     "rps_splat_cells": "7P6i2fP",

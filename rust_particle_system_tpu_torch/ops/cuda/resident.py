@@ -4,11 +4,12 @@ Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
 single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
 K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
 the rebin of the chosen ``variant``: the lossless K1 by default, two K9 passes
-for 4 and 5, K12 for 2 and 3; for 5 and 6 the defer mask, the density walk K2,
-the pressure terms, the fused force walk K3 with the frame tail, or with
-``fuse_tail=False`` the raw walk K3b and the tail in torch; for 2-4 no defer
-mask and always the raw walk), ``plane_frame`` (a frame plus its image through
-the plane render K4), ``render_plane_state`` and ``to_particle_state``.
+for 4 and 5, K12 for 2 and 3; for 5 and 6 the defer mask, the density walk K2
+with the pressure terms in its epilogue, the fused force walk K3 with the
+frame tail, or with ``fuse_tail=False`` the raw walk K3b and the tail in
+torch; for 2-4 no defer mask and always the raw walk), ``plane_frame`` (a
+frame plus its image through the plane render K4), ``render_plane_state`` and
+``to_particle_state``.
 
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
@@ -238,7 +239,7 @@ def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: b
 def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
                   fuse_tail: bool = True, variant: int = 6) -> PlaneState:
     """One live physics frame: gravity + predict, rebin (K1), defer mask, density
-    walk (K2), pressure terms, then the fused force walk with the frame tail
+    walk with the pressure terms (K2), then the fused force walk with the frame tail
     (K3), or with ``fuse_tail=False`` the raw force walk (K3b) and the tail in
     torch (the same math in another order of rounding).
 

@@ -6,8 +6,13 @@ one-cell-per-slot-row layout and the pair-packed one:
 * :func:`density_planes` — kernel K2 (``csrc/sph.cu``), replacing the Pallas
   ``_make_seg_kernel`` + ``_density_update``: (rho, rhon) = norms x (sum v^2,
   sum v^3) over the 3x3 cells, v = max(h - d, 0), self included.
-* :func:`pressure_terms` — per-slot terms, plain torch (JAX computes them
-  outside Pallas too).
+* :func:`density_pressure_planes` — kernel K2 with its pressure epilogue:
+  the force walk's per-slot terms (P1, NPo, NPn) of :func:`pressure_terms`,
+  computed from each slot's two sums in registers, op by op in torch's
+  order, so bit for bit :func:`pressure_terms` of :func:`density_planes`
+  (JAX computes the terms outside Pallas, after ``_density_update``).  The
+  frame walks through it; :func:`pressure_terms` is its plain version's
+  second half.
 * :func:`force_planes_integrated` — kernel K3, replacing ``_make_seg_kernel`` +
   ``_force_update`` + ``_force_finalize_integrated``: the fused pressure,
   near-pressure and viscosity walk with the frame tail (velocity combine,
@@ -15,9 +20,10 @@ one-cell-per-slot-row layout and the pair-packed one:
 * :func:`force_planes` — kernel K3b, replacing ``_make_seg_kernel`` +
   ``_force_update`` + ``_force_finalize``: the same walk with the raw-sum
   epilogue (fx, fy, fvx, fvy), for the unfused tail (``fuse_tail=False``).
-* :func:`density_pairs`, :func:`force_pairs_integrated`, :func:`force_pairs` —
-  kernel K6, replacing ``_make_seg_kernel`` with ``n_dx=2`` (the pair-packed
-  layout, ``sph_step.py:95-153``): the same three walks and outputs, launched
+* :func:`density_pairs`, :func:`density_pressure_pairs`,
+  :func:`force_pairs_integrated`, :func:`force_pairs` — kernel K6, replacing
+  ``_make_seg_kernel`` with ``n_dx=2`` (the pair-packed layout,
+  ``sph_step.py:95-153``): the same walks and outputs, launched
   as the strip walks of K2/K3/K3b on the pair-packed planes (a strip holds
   whole pairs), so their outputs are K2's/K3's/K3b's bit for bit.  Their
   plain versions walk the window the TPU walked, B[p] and B[p+1] (cells
@@ -165,6 +171,8 @@ _force = _lib.kernel("rps_force")
 _pair_density = _lib.kernel("rps_pair_density")
 _pair_force_integrated = _lib.kernel("rps_pair_force_integrated")
 _pair_force = _lib.kernel("rps_pair_force")
+_density_pressure = _lib.kernel("rps_density_pressure")
+_pair_density_pressure = _lib.kernel("rps_pair_density_pressure")
 
 
 def _launch(launch, nbr, own, n_out: int, ghost: bool, *scalars):
@@ -220,22 +228,66 @@ def density_pairs(px, py, params: SimParams, ghost: bool = False):
 density_pairs.launches = 0
 
 
+def pressure_scalars(params: SimParams) -> tuple:
+    """(target density, pressure multiplier, near-density multiplier, alpha,
+    beta) with alpha = -2 density norm, beta = -3 near-density norm formed in
+    f32."""
+    return (params.target_density, params.pressure_multiplier,
+            params.near_density_multiplier, f32(-2.0 * params.density_kernel_norm),
+            f32(-3.0 * params.near_density_kernel_norm))
+
+
 def pressure_terms(rho, rhon, params: SimParams):
     """Per-slot pressure terms pre-scaled by the pair-loop scalars:
     (alpha p / rho^2, beta np / rho^2, beta np / (rho rhon)), guarded for
-    empties; alpha = -2 density norm, beta = -3 near-density norm."""
+    empties.  K2's pressure epilogue rounds the same operations in the same
+    order (``csrc/sph.cu::pressure_terms``)."""
+    target, pmult, nmult, alpha, beta = pressure_scalars(params)
     rho_safe = torch.where(rho > 0, rho, 1.0)
     rhon_safe = torch.where(rhon > 0, rhon, 1.0)
-    alpha = f32(-2.0 * params.density_kernel_norm)
-    beta = f32(-3.0 * params.near_density_kernel_norm)
     inv_rho2 = 1.0 / (rho_safe * rho_safe)
-    p = (rho - params.target_density) * params.pressure_multiplier
-    np_ = rhon * params.near_density_multiplier
+    p = (rho - target) * pmult
+    np_ = rhon * nmult
     return (
         alpha * (p * inv_rho2),
         beta * (np_ * inv_rho2),
         beta * (np_ / (rho_safe * rhon_safe)),
     )
+
+
+def density_pressure_planes(px, py, params: SimParams, ghost: bool = False):
+    """(P1, NPo, NPn) ``[gh, gw, C]`` from walk position planes (the own rows
+    only with ``ghost``): :func:`pressure_terms` of :func:`density_planes`,
+    bit for bit.  Launches K2 with its pressure epilogue for CUDA tensors;
+    runs the plain composition for CPU tensors."""
+    scal = density_scalars(params)
+    _check_shapes((px, py), (), ghost)
+    if _lib.dispatch(px) == "plain":
+        return pressure_terms(*density_planes_plain(px, py, *scal, ghost=ghost), params)
+    out = _launch(_density_pressure, (px, py), (), 3, ghost, *scal, *pressure_scalars(params))
+    density_pressure_planes.launches += 1
+    return out
+
+
+density_pressure_planes.launches = 0
+
+
+def density_pressure_pairs(px, py, params: SimParams, ghost: bool = False):
+    """:func:`density_pressure_planes` in the pair-packed layout: launches
+    K6's density walk with the pressure epilogue for CUDA tensors; runs the
+    plain composition for CPU tensors."""
+    scal = density_scalars(params)
+    _check_shapes((px, py), (), ghost)
+    if _lib.dispatch(px) == "plain":
+        return pressure_terms(*density_planes_plain(px, py, *scal, pair=True, ghost=ghost),
+                              params)
+    out = _launch(_pair_density_pressure, (px, py), (), 3, ghost, *scal,
+                  *pressure_scalars(params))
+    density_pressure_pairs.launches += 1
+    return out
+
+
+density_pressure_pairs.launches = 0
 
 
 def force_scalars(params: SimParams) -> tuple:

@@ -2,7 +2,10 @@
 
 Counterpart of ``rust_particle_system_tpu/ops/pallas/sph_step.py::
 _forces_from_cells`` as two entries: the fused-tail walk (``integrate_planes``
-given: K3, or K6 for ``spec.pack2``) and the unfused one (K3b, or K6).  The
+given: K3, or K6 for ``spec.pack2``) and the unfused one (K3b, or K6).  Both
+start with the density walk K2 (or K6) in its pressure epilogue, which
+writes the force walk's per-slot terms (P1, NPo, NPn) in place of JAX's
+(rho, rhon) and the terms it computes from them after the walk.  The
 TPU's lane and tile padding, ghost borders and A/B pair packing are layout
 mechanics of its kernels; the port's kernels take the planes as they are, and
 the pair-packed layout is a block shape of the same walks (``csrc/sph.cu``).
@@ -15,7 +18,8 @@ mesh sends one buffer per direction for each.  The walks then serve the own
 rows only; ``None`` (one device) walks the planes as they are.
 
 The walks run under the frame's ``sph.density`` and ``sph.force`` spans, the
-pressure terms (with their ghost rows) under ``sph.pressure``.
+pressure terms' ghost rows under ``sph.pressure`` (on one device it holds no
+work).
 """
 
 from __future__ import annotations
@@ -24,40 +28,40 @@ from ...core.params import SimParams
 from ...runtime.profiling import span
 from ..grid import GridSpec
 from .rebin import SENTINEL
-from .sph import (density_pairs, density_planes, force_pairs, force_pairs_integrated,
-                  force_planes, force_planes_integrated, force_scalars,
-                  pressure_terms)
+from .sph import (density_pressure_pairs, density_pressure_planes, force_pairs,
+                  force_pairs_integrated, force_planes, force_planes_integrated,
+                  force_scalars)
 
 
 def _walks(spec: GridSpec):
-    """(density, fused force, raw force) walks of ``spec``'s layout."""
+    """(density with pressure terms, fused force, raw force) walks of
+    ``spec``'s layout."""
     if spec.pack2:
-        return density_pairs, force_pairs_integrated, force_pairs
-    return density_planes, force_planes_integrated, force_planes
+        return density_pressure_pairs, force_pairs_integrated, force_pairs
+    return density_pressure_planes, force_planes_integrated, force_planes
 
 
 def _neighbour_side(pxg, pyg, vxg, vyg, spec: GridSpec, params: SimParams, halo):
     """The force walk's neighbour-side planes (px, py, P1, NPn, vx, vy), with
     ghost rows from ``halo`` if given, and the own-side NPo: the density walk
-    and the pressure terms, with their two exchanges."""
+    with the pressure terms in its epilogue, with their two exchanges."""
     density = _walks(spec)[0]
     ghost = halo is not None
     grown = (lambda planes, fills: list(planes)) if halo is None else halo
     with span("sph.density"):
         wx, wy, wvx, wvy = grown((pxg, pyg, vxg, vyg), (SENTINEL, SENTINEL, 0.0, 0.0))
-        walked = density(wx, wy, params, ghost=ghost)
+        P1, NPo, NPn = density(wx, wy, params, ghost=ghost)
     with span("sph.pressure"):
-        P1, NPo, NPn = pressure_terms(*walked, params)
         P1, NPn = grown((P1, NPn), (0.0, 0.0))
     return (wx, wy, P1, NPn, wvx, wvy), NPo
 
 
 def _forces_from_cells(pxg, pyg, vxg, vyg, npx, npy, spec: GridSpec,
                        params: SimParams, halo=None):
-    """Density walk, pressure terms, then the fused force walk whose epilogue
-    performs the frame tail.  ``npx``/``npy`` are the TRUE predicted positions
-    (``pxg``/``pyg`` park deferred slots).  Returns the FINAL (px, py, vx, vy)
-    planes."""
+    """Density walk with the pressure terms, then the fused force walk whose
+    epilogue performs the frame tail.  ``npx``/``npy`` are the TRUE predicted
+    positions (``pxg``/``pyg`` park deferred slots).  Returns the FINAL (px,
+    py, vx, vy) planes."""
     nbr, NPo = _neighbour_side(pxg, pyg, vxg, vyg, spec, params, halo)
     with span("sph.force"):
         return _walks(spec)[1](*nbr, NPo, npx, npy, params, ghost=halo is not None)
@@ -66,8 +70,8 @@ def _forces_from_cells(pxg, pyg, vxg, vyg, npx, npy, spec: GridSpec,
 def _velocities_from_cells(pxg, pyg, vxg, vyg, spec: GridSpec, params: SimParams,
                            halo=None):
     """The unfused walk (the JAX entry without ``integrate_planes``): density
-    walk, pressure terms, raw force walk (K3b or K6), then the velocity update
-    ``v + f*dt + fv*vscale``.  Returns (nvx, nvy); values at slots whose walk
+    walk with the pressure terms, raw force walk (K3b or K6), then the velocity
+    update ``v + f*dt + fv*vscale``.  Returns (nvx, nvy); values at slots whose walk
     position is parked are meaningless (the caller restores or parks them)."""
     nbr, NPo = _neighbour_side(pxg, pyg, vxg, vyg, spec, params, halo)
     with span("sph.force"):

@@ -105,6 +105,7 @@ def _entry(name: str) -> str:
 
 
 @pytest.mark.parametrize("pair, classic", [("rps_pair_density", "rps_density"),
+                                           ("rps_pair_density_pressure", "rps_density_pressure"),
                                            ("rps_pair_force_integrated", "rps_force_integrated"),
                                            ("rps_pair_force", "rps_force")])
 def test_k6_entries_launch_the_strip_walks(pair, classic):
