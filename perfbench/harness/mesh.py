@@ -1,6 +1,9 @@
 """A cell over several cards: one process a band, spawned by the port's own
 one-host launcher (``parallel.run_bands``), each running :func:`.cell.run` on
-its band; the first band gathers the checked frame and compares it."""
+its band.  Each band checks its own rows of the checked frame, with the few
+ghost rows of its neighbours that the reference's step reads, and the first
+band sums the bands' counts and takes their largest gaps; no band holds the
+whole grid."""
 
 from __future__ import annotations
 

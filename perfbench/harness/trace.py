@@ -17,7 +17,7 @@ class Reading:
     device operation; ``frames`` and ``window_s`` of the cycle;
     ``enqueue_ms``: the host's time to enqueue one frame on a drained
     stream; ``work``: the counts of the physics' own work per frame (on the
-    mesh, of the whole grid, on the first rank only)."""
+    mesh, of the whole grid, summed over the bands, on the first rank only)."""
 
     ops: list
     frames: int

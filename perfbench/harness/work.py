@@ -40,17 +40,23 @@ def sprite_pixels(cx, cy, radius: float, height: int, width: int) -> int:
     return pairs
 
 
-def count_pairs(wx, wy, h: float) -> int:
+def count_pairs(wx, wy, h: float, rows: slice = slice(None)) -> int:
     """Ordered pairs of walk-live slots closer than ``h`` (each slot with
-    itself included), over the 3x3 cells that hold every such pair."""
+    itself included), over the 3x3 cells that hold every such pair; of the
+    slots in ``rows`` alone (a band's own rows, its ghost rows beside them)."""
+    own_rows = torch.zeros(wx.shape[0], dtype=torch.bool, device=wx.device)
+    own_rows[rows] = True
     pairs = 0
     for r0, r1, c in ref._chunks(wx):
+        if not bool(own_rows[r0:r1].any()):
+            continue
         ox, oy = wx[r0:r1, :, :c], wy[r0:r1, :, :c]
         nx, ny = ref._windows([(wx[..., :c], ref.SENTINEL), (wy[..., :c], ref.SENTINEL)],
                               r0, r1, wx.shape[1])
         dx = nx[:, :, None] - ox[..., None, None]
         dy = ny[:, :, None] - oy[..., None, None]
-        pairs += int(((dx * dx + dy * dy < h * h) & ref.live(ox)[..., None, None]).sum())
+        own = ref.live(ox) & own_rows[r0:r1, None, None]
+        pairs += int(((dx * dx + dy * dy < h * h) & own[..., None, None]).sum())
     return pairs
 
 

@@ -16,7 +16,7 @@ which this skips, is checked by itself: the reference bins the run's
 particles again and the program's initial planes must equal its planes bit
 for bit.  The reference's rebin is the configuration's: the lossless one for
 variants 5 and 6 (the port gives the same planes bit for bit), otherwise the
-file ``reference/sph_rebin_v<variant>.py`` (``rebin(chans, g)``, ``DEFERS``).
+file ``reference/sph_rebin_v<variant>.py`` (``rebin(chans, g, row0)``, ``DEFERS``).
 
 Numbers, each with its limit (``limits/<cell>.json``; the exact ones 0):
 
@@ -181,7 +181,19 @@ def _vel_gap(v, x_raw, v_raw, lo: float, hi: float, damp: float, eps: float):
 
 class Judge:
     """The reference's side of a run: the same grid, parameters, rebin and
-    image geometry, worked out from the configuration alone."""
+    image geometry, worked out from the configuration alone.
+
+    On one device the judge sees the whole grid.  On a band mesh each band
+    judges its own rows, ``band = (row0, lo, rows)``: its own rows are the
+    grid's ``row0 .. row0 + rows - 1``, and the input of the checked frame
+    (and of each work sample) is handed with ``lo`` ghost rows below them and
+    the ghost rows above them that the band above sent (``GHOSTS``; none past
+    the mesh's edges, where the reference's fills stand in as on the whole
+    grid).  :meth:`combine` and :meth:`work` make the whole grid's numbers of
+    the bands' parts."""
+
+    GHOSTS = (4, 3)  # input rows below and above its own that one band's step reads
+    LARGEST = ("pos_err", "vel_err", "image_err")  # the other numbers are counts, summed
 
     def __init__(self, cfg: dict, bench=spec.BENCH, image: bool = False):
         lay = layout(cfg)
@@ -197,16 +209,31 @@ class Judge:
             self.rebin, self.defer = mod.rebin, bool(mod.DEFERS)
         self.geo = None
         if image:
+            if lay["bands"] > 1:
+                raise ValueError("the band mesh's entries draw no image")
             r = cfg["render"]
             self.geo = ref_render.geometry(cfg["bounds"], self.g, r["width"], r["height"],
                                            r["max_radius_px"], self.p.particle_size)
 
-    def step(self, planes, pair_dtype=torch.float32) -> dict:
-        return ref.step(planes, self.p, self.g, pair_dtype, self.rebin, self.defer)
+    def _band(self, band, planes) -> tuple:
+        """(row0, lo, rows) of ``band``; the whole grid where it is None."""
+        return band if band is not None else (0, 0, planes[0].shape[0])
 
-    def init_numbers(self, prog_planes, particles) -> dict:
+    def step(self, planes, pair_dtype=torch.float32, band=None) -> dict:
+        """The reference's step of ``planes``; on a band, of its own rows:
+        the planes and tail values of those rows alone."""
+        row0, lo, rows = self._band(band, planes)
+        stepped = ref.step(planes, self.p, self.g, pair_dtype, self.rebin, self.defer, row0 - lo)
+        own = lambda ts: [t[lo: lo + rows] for t in ts]
+        return dict(stepped, planes=own(stepped["planes"]), raw=own(stepped["raw"]))
+
+    def init_numbers(self, prog_planes, particles, row0: int = 0) -> dict:
+        """The program's initial planes (grid rows from ``row0`` on) against
+        the reference's binning of the same rows; the loss of the particles
+        whose cell lies in them."""
         pos, vel = particles
-        ref_planes, lost = ref.bin_particles(pos, vel, self.g)
+        rows = (row0, row0 + prog_planes[0].shape[0])
+        ref_planes, lost = ref.bin_particles(pos, vel, self.g, rows)
         mismatch = torch.zeros(prog_planes[0].shape, dtype=torch.bool, device=pos.device)
         for a, b in zip(prog_planes, ref_planes):
             mismatch |= _bits(a.to(pos.device)) != _bits(b)
@@ -247,42 +274,69 @@ class Judge:
             numbers.update(self.image_numbers(out_planes, image))
         return numbers
 
-    def numbers(self, particles, whole_init, whole_in, whole_out, image, lost: int) -> dict:
-        """Every compared number of a run (the first band's, on a mesh)."""
-        numbers = self.init_numbers(whole_init, particles)
-        stepped = self.step(whole_in)
-        live = int(ref.live(whole_out[0]).sum())
-        numbers.update(self.frame_numbers(whole_out, image, stepped))
-        numbers.update({"lost": lost, "live_error": abs(live - self.n)})
+    def numbers(self, particles, init, planes_in, out, image, lost: int, band=None) -> dict:
+        """Every compared number of a run, or on a band mesh this band's part
+        of them (with its ``live`` count, see :meth:`combine`)."""
+        numbers = self.init_numbers(init, particles, self._band(band, out)[0])
+        numbers.update(self.frame_numbers(out, image, self.step(planes_in, band=band)))
+        numbers.update({"lost": lost, "live": int(ref.live(out[0]).sum())})
         return numbers
 
-    def control(self, whole_in) -> dict:
-        """The control's numbers: the reference in the precision below
-        float32 (its pair terms in bfloat16) in the program's place, held to
-        the reference in float32."""
-        stepped = self.step(whole_in)
-        low = self.step(whole_in, torch.bfloat16)["planes"]
+    def combine(self, parts: list) -> dict:
+        """The whole grid's numbers from the bands' parts, in band order:
+        the gaps the largest, ``lost`` the first band's, the other counts
+        summed; ``live`` becomes ``live_error``, the summed live count's
+        distance from n."""
+        out = {}
+        for k in parts[0]:
+            vals = [p[k] for p in parts]
+            if k == "lost":  # every band counts the whole mesh's
+                out[k] = vals[0]
+            else:
+                out[k] = max(vals) if k in self.LARGEST else sum(vals)
+        if "live" in out:
+            out["live_error"] = abs(out.pop("live") - self.n)
+        return out
+
+    def control(self, planes_in, band=None) -> dict:
+        """The control's numbers (this band's part): the reference in the
+        precision below float32 (its pair terms in bfloat16) in the program's
+        place, held to the reference in float32."""
+        stepped = self.step(planes_in, band=band)
+        low = self.step(planes_in, torch.bfloat16, band)["planes"]
         image = None
         if self.geo is not None:
             image = ref_render.image(*low[:4], self.geo, self.p, torch.bfloat16)
         return self.frame_numbers(low, image, stepped)
 
-    def census(self, samples: list, whole_out) -> dict:
-        """The physics' own work a frame (the rooflines' yardstick): the mean
-        over the sampled frames' inputs, and the image of the checked
+    def census(self, samples: list, out, band=None) -> dict:
+        """This band's counts of the physics' own work (the rooflines'
+        yardstick): each sampled frame's walks, and the image of the checked
         frame's output where the entry draws."""
-        counts = work.mean_census([self.walk_census(s) for s in samples])
+        counts = {"walks": [self.walk_census(s, band) for s in samples]}
         if self.geo is not None:
-            counts.update(work.image_census(whole_out, self.geo))
+            counts["image"] = work.image_census(out, self.geo)
         return counts
 
-    def walk_census(self, planes) -> dict:
-        """The walks' work in the frame from ``planes``: live particles, the
-        walk-live ones (not deferred), and the pairs the density walk (each
-        slot with itself included) and the force walk (without) need."""
-        npx, npy = self.rebin(ref.predict(planes, self.p), self.g)[:2]
-        wx, wy = ref.walk_positions(npx, npy, self.g) if self.defer else (npx, npy)
-        walk_live = int(ref.live(wx).sum())
-        pairs = work.count_pairs(wx, wy, self.p.h)
-        return {"live": int(ref.live(npx).sum()), "walk_live": walk_live,
+    def work(self, parts: list) -> dict:
+        """The whole grid's work a frame from the bands' :meth:`census`: each
+        sample's counts summed over the bands, then the mean over samples."""
+        walks = [{k: sum(w[k] for w in frame) for k in frame[0]}
+                 for frame in zip(*(p["walks"] for p in parts))]
+        counts = work.mean_census(walks)
+        counts.update(parts[0].get("image", {}))
+        return counts
+
+    def walk_census(self, planes, band=None) -> dict:
+        """The walks' work in the frame from ``planes`` (of this band's own
+        rows): live particles, the walk-live ones (not deferred), and the
+        pairs the density walk (each slot with itself included) and the
+        force walk (without) need."""
+        row0, lo, rows = self._band(band, planes)
+        npx, npy = self.rebin(ref.predict(planes, self.p), self.g, row0 - lo)[:2]
+        wx, wy = ref.walk_positions(npx, npy, self.g, row0 - lo) if self.defer else (npx, npy)
+        own = slice(lo, lo + rows)
+        walk_live = int(ref.live(wx[own]).sum())
+        pairs = work.count_pairs(wx, wy, self.p.h, own)
+        return {"live": int(ref.live(npx[own]).sum()), "walk_live": walk_live,
                 "density_pairs": pairs, "force_pairs": pairs - walk_live}

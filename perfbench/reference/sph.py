@@ -125,12 +125,18 @@ def _spill_offsets():
                   key=lambda o: (o[0] * o[0] + o[1] * o[1], o[0], o[1]))
 
 
-def bin_particles(pos, vel, g: Grid):
+def bin_particles(pos, vel, g: Grid, rows=None):
     """The initial planes (px, py, vx, vy, idsf) ``[gh, gw, C]`` of the
     particles ``pos``, ``vel`` (ids in row order), and how many were lost: a
     stable sort by cell, slot = rank in the cell; rows past C go, in sorted
     order, to the nearest cell of their 5x5 neighbourhood with a free slot
-    (the first ``MAX_SPILL`` of them)."""
+    (the first ``MAX_SPILL`` of them).
+
+    ``rows`` = ``(a, b)`` builds only the grid rows ``a .. b-1`` (a band's):
+    every particle is still sorted and spilled over the whole grid, so the
+    planes are those rows of the whole planes, and the loss counts the
+    particles whose own cell lies in them."""
+    a, b = (0, g.gh) if rows is None else rows
     n, dev = pos.shape[0], pos.device
     keys = key_y(pos[:, 1], g) * g.gw + key_x(pos[:, 0], g)
     skeys, perm = torch.sort(keys, stable=True)
@@ -138,32 +144,36 @@ def bin_particles(pos, vel, g: Grid):
     starts = torch.searchsorted(skeys, torch.arange(ncell + 1, dtype=torch.int32,
                                                     device=dev)).long()
     slot = torch.arange(n, device=dev) - starts[skeys.long()]
-    packed = torch.cat([pos[perm], vel[perm],
-                        perm.to(torch.float32)[:, None]], dim=1)
+    packed = lambda i: torch.cat([pos[perm[i]], vel[perm[i]],
+                                  perm[i].to(torch.float32)[:, None]], dim=1)
     fills = torch.tensor([SENTINEL, SENTINEL, 0.0, 0.0, 0.0], device=dev)
-    cells = fills.repeat(ncell * g.C, 1)
+    base = a * g.gw * g.C  # the first slot of the rows built
+    cells = fills.repeat((b - a) * g.gw * g.C, 1)
     fit = slot < g.C
-    cells[(skeys.long() * g.C + slot)[fit]] = packed[fit]
+    put = fit & (skeys >= a * g.gw) & (skeys < b * g.gw)
+    cells[skeys[put].long() * g.C + slot[put] - base] = packed(put)
     over = torch.nonzero(~fit).flatten()
-    lost = int(over.numel())
-    if lost:
+    home = skeys[over] // g.gw
+    lost = int(((home >= a) & (home < b)).sum())
+    if over.numel():
         counts = (starts[1:] - starts[:-1]).clamp_max(g.C).reshape(g.gh, g.gw)
         counts = counts.cpu().numpy().copy()
-        rows, dest = [], []
+        spilled, dest = [], []
         for i, key in zip(over[:MAX_SPILL].tolist(),
                           skeys[over[:MAX_SPILL]].tolist()):
             cy, cx = divmod(int(key), g.gw)
             for dy, dx in _spill_offsets():
                 ny, nx = min(max(cy + dy, 0), g.gh - 1), min(max(cx + dx, 0), g.gw - 1)
                 if counts[ny, nx] < g.C and (ny, nx) != (cy, cx):
-                    rows.append(i)
-                    dest.append((ny * g.gw + nx) * g.C + int(counts[ny, nx]))
+                    lost -= int(a <= cy < b)
+                    if a <= ny < b:
+                        spilled.append(i)
+                        dest.append((ny * g.gw + nx) * g.C + int(counts[ny, nx]) - base)
                     counts[ny, nx] += 1
                     break
-        if rows:
-            cells[torch.tensor(dest, device=dev)] = packed[torch.tensor(rows, device=dev)]
-        lost -= len(rows)
-    planes = cells.reshape(g.gh, g.gw, g.C, 5).permute(3, 0, 1, 2)
+        if spilled:
+            cells[torch.tensor(dest, device=dev)] = packed(torch.tensor(spilled, device=dev))
+    planes = cells.reshape(b - a, g.gw, g.C, 5).permute(3, 0, 1, 2)
     return [p.contiguous() for p in planes], lost
 
 
@@ -215,17 +225,19 @@ def _hole_fill(own, win, keep, stay):
             for o, w, f in zip(own, win, FILLS)]
 
 
-def rebin(chans, g: Grid):
+def rebin(chans, g: Grid, row0: int = 0):
     """The lossless rebin: stayers keep their slots; a mover whose one-cell
     hop lands in a neighbour fills its dead slots in candidate order (rows
     r-1 then r+1, then columns c-1 then c+1, slot order within each); a mover
-    no neighbour adopts stays where it is."""
+    no neighbour adopts stays where it is.  ``chans`` are grid rows from
+    ``row0`` on (a band with its ghost rows); row r of the output reads rows
+    r-2 .. r+1, and the fills past the planes' ends."""
     gw, C = g.gw, g.C
     R = chans[0].shape[0]
     ext = [torch.cat([torch.full((2, gw, C), f, device=p.device), p,
                       torch.full((1, gw, C), f, device=p.device)])
            for p, f in zip(chans, FILLS)]
-    rows = torch.arange(R, device=chans[0].device).view(R, 1, 1)
+    rows = (torch.arange(R, device=chans[0].device) + row0).view(R, 1, 1)
     cols = torch.arange(gw, device=chans[0].device).view(1, gw, 1)
     kx = lambda x: key_x(x, g)
     ky = lambda y: key_y(y, g)
@@ -270,11 +282,13 @@ def rebin(chans, g: Grid):
     return [torch.where(retain, m, o) for m, o in zip(mid, out_x)]
 
 
-def walk_positions(npx, npy, g: Grid):
+def walk_positions(npx, npy, g: Grid, row0: int = 0):
     """Deferred slots (live, but resident in another cell than their key) are
-    parked: they take no part in the walks this frame."""
+    parked: they take no part in the walks this frame.  The planes are grid
+    rows from ``row0`` on."""
     cx = torch.arange(g.gw, dtype=torch.int32, device=npx.device)[None, :, None]
-    cy = torch.arange(npx.shape[0], dtype=torch.int32, device=npx.device)[:, None, None]
+    cy = (torch.arange(npx.shape[0], dtype=torch.int32, device=npx.device)
+          + row0)[:, None, None]
     defer = live(npx) & ((key_x(npx, g) != cx) | (key_y(npy, g) != cy))
     return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
 
@@ -396,14 +410,19 @@ def forces(wx, wy, P1, NPn, vx, vy, NPo, npx, npy, p: Params, pair_dtype=torch.f
 
 
 def step(planes, p: Params, g: Grid, pair_dtype=torch.float32, rebin=rebin,
-         defer: bool = True) -> dict:
+         defer: bool = True, row0: int = 0) -> dict:
     """One physics frame of the plane state ``planes`` (px, py, vx, vy,
-    idsf), rebinned by ``rebin(chans, g)`` (the lossless one by default);
-    ``defer=False`` walks every live slot where it is (a rebin that drops what
-    does not fit).  Returns the new planes and what the comparison and the
-    work counts read: the tail's raw values, the pairs the walks need."""
-    npx, npy, nvx0, nvy0, nidsf = rebin(predict(planes, p), g)
-    wx, wy = walk_positions(npx, npy, g) if defer else (npx, npy)
+    idsf), rebinned by ``rebin(chans, g, row0)`` (the lossless one by
+    default); ``defer=False`` walks every live slot where it is (a rebin that
+    drops what does not fit).  The planes are grid rows from ``row0`` on: the
+    whole grid, or a band with the ghost rows its own rows read (rows
+    r-4 .. r+3 of the input make row r of the output: the rebin reads r-2 ..
+    r+1, the force walk the pressure terms of r±1, whose density walk and
+    its slot trim (``_chunks``) read the rebinned rows r±2).  Returns the
+    new planes and what the comparison and the work counts read: the tail's
+    raw values, the pairs the walks need."""
+    npx, npy, nvx0, nvy0, nidsf = rebin(predict(planes, p), g, row0)
+    wx, wy = walk_positions(npx, npy, g, row0) if defer else (npx, npy)
     rho, rhon, pairs = density(wx, wy, p, pair_dtype)
     P1, NPo, NPn = pressure_terms(rho, rhon, p)
     (px, py, vx, vy), raw = forces(wx, wy, P1, NPn, nvx0, nvy0, NPo, npx, npy, p, pair_dtype)
