@@ -25,7 +25,7 @@ from .models.base import model_device
 from .models.flow_field import FlowFieldParams
 from .models.nbody import NBodyParams
 from .ops.cuda.rebin import SENTINEL
-from .ops.cuda.resident import PlaneState
+from .ops.cuda.resident import ID_EXACT, PlaneState
 
 PARAM_TYPES = (SimParams, NBodyParams, FlowFieldParams, AttractorParams)
 
@@ -85,8 +85,13 @@ def particle_state_from_numpy(arrays, device="cuda") -> ParticleState:
 
 
 def state_to_numpy(state) -> dict:
-    """A PlaneState or ParticleState as the JAX checkpoint's ``state/`` leaves."""
+    """A PlaneState or ParticleState as the JAX checkpoint's ``state/`` leaves.
+    The JAX package reads ``idsf`` as f32 values, exact to 2^24: a PlaneState
+    of more particles raises ValueError."""
     if isinstance(state, PlaneState):
+        if state.n > ID_EXACT:
+            raise ValueError(f"a PlaneState of {state.n} particles: the JAX checkpoint "
+                             f"holds ids as f32 values, exact only to 2^24")
         out = {f"state/{k}": getattr(state, k).detach().cpu().numpy()
                for k in ("px", "py", "vx", "vy", "idsf")}
         out["state/lost"] = np.asarray(int(state.lost), np.int32)

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ...core import kernels as K
@@ -38,7 +37,9 @@ from .plane_build import cell_planes_aos
 from .rebin import SENTINEL, check_variant, rebin_planes
 from .sph_step import _forces_from_cells, _velocities_from_cells
 
-MAX_IDS = 1 << 24  # ids ride an f32 channel: exact up to 2^24
+ID_EXACT = 1 << 24  # ids below it ride the f32 ``idsf`` channel as their value
+MAX_IDS = (1 << 31) - (1 << 23)  # the id codec's range: ids 0 .. MAX_IDS - 1
+_SIGN_BIT = -(1 << 31)  # 0x80000000 as an int32
 MAX_SPILL = 4096  # overflow rows the init spill places (as JAX's max_spill)
 
 
@@ -53,7 +54,7 @@ class PlaneState:
     py: torch.Tensor
     vx: torch.Tensor
     vy: torch.Tensor
-    idsf: torch.Tensor  # original index as an f32 value
+    idsf: torch.Tensor  # original index, encoded by :func:`encode_ids`
     frame: int
     lost: torch.Tensor
     n: int
@@ -66,6 +67,26 @@ class PlaneState:
         return to_particle_state(self, params)
 
 
+def encode_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Particle ids (0 .. ``MAX_IDS`` - 1) as the f32 ``idsf`` channel.  An id
+    below 2^24 is ``float(id)``, exact, as the JAX package stores it; a wider
+    one is the float whose bits are ``0x80000000 | id``: negative, its
+    exponent field ``id >> 23`` in 2..254, so never a subnormal, -0.0, an
+    infinity or a NaN.  The frame moves the channel (the rebin, the re-park,
+    the mesh's exchanges) and never computes with it, so either form comes
+    back unchanged from :func:`decode_ids`."""
+    ids = ids.to(torch.int32)
+    wide = (ids | _SIGN_BIT).view(torch.float32)
+    return torch.where(ids >= ID_EXACT, wide, ids.to(torch.float32))
+
+
+def decode_ids(idsf: torch.Tensor) -> torch.Tensor:
+    """The int32 ids of an ``idsf`` channel (:func:`encode_ids`' inverse);
+    a dead slot's 0.0 reads 0."""
+    bits = idsf.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits & 0x7FFFFFFF, idsf.to(torch.int32))
+
+
 def _spill_offsets():
     """The 5x5 neighbourhood minus the centre, by distance then row-major."""
     return sorted(
@@ -73,24 +94,31 @@ def _spill_offsets():
         key=lambda o: (o[0] * o[0] + o[1] * o[1], o[0], o[1]))
 
 
-def _spill_init_overflow(ch, packed, keys, slot, spec: GridSpec):
+def _spill_init_overflow(ch, packed, grid, spec: GridSpec, a: int = 0):
     """Zero-loss initial binning: place capacity-overflow rows (``slot >= C`` in
     the sorted stream) into the nearest neighbour cell with a free slot, in
     sorted order, counts updated as it goes (the JAX ``_spill_init_overflow``).
+    ``ch`` holds grid rows ``a ..``; every spill is decided over the whole
+    grid, and those that land in ``ch``'s rows are written.
 
     The placement loop runs on the host over at most ``MAX_SPILL`` rows, and
     only when there is overflow (one device read at init); the values are then
-    written into the planes in one scatter.  Returns (planes, spilled)."""
+    written into the planes in one scatter.  Returns (planes, spilled), every
+    spill counted wherever it landed."""
     gh, gw, C = spec.gh, spec.gw, spec.capacity
-    over = slot >= C
+    over = grid.slot >= C
     n_over = int(over.sum())
     if n_over == 0:
         return ch, 0
     idx = torch.nonzero(over).flatten()[:MAX_SPILL]
-    counts = (ch[0] < 0.5 * SENTINEL).sum(-1).cpu().numpy().astype(np.int64)
-    key_h = keys[idx].cpu().numpy()
+    # each cell's live slots in the whole grid's planes before the spill
+    placed = ~over & (packed[:, 0] < 0.5 * SENTINEL)
+    counts = torch.bincount(grid.sorted_keys[placed].long(), minlength=gh * gw)
+    counts = counts.reshape(gh, gw).cpu().numpy()
+    key_h = grid.sorted_keys[idx].cpu().numpy()
     offs = _spill_offsets()
     rows, ty, tx, ts = [], [], [], []
+    spilled = 0
     for i, key in enumerate(key_h):
         cy, cx = divmod(int(key), gw)
         for dy, dx in offs:
@@ -98,39 +126,52 @@ def _spill_init_overflow(ch, packed, keys, slot, spec: GridSpec):
             nx = min(max(cx + dx, 0), gw - 1)
             # clipped offsets can alias the (full) home cell; exclude it
             if counts[ny, nx] < C and (ny != cy or nx != cx):
-                rows.append(i)
-                ty.append(ny)
-                tx.append(nx)
-                ts.append(int(counts[ny, nx]))
+                spilled += 1
+                if a <= ny < a + ch[0].shape[0]:
+                    rows.append(i)
+                    ty.append(ny - a)
+                    tx.append(nx)
+                    ts.append(int(counts[ny, nx]))
                 counts[ny, nx] += 1
                 break
     if rows:
         dev = ch[0].device
         sel = idx[torch.as_tensor(rows, device=dev)]
-        at = tuple(torch.as_tensor(a, device=dev) for a in (ty, tx, ts))
+        at = tuple(torch.as_tensor(v, device=dev) for v in (ty, tx, ts))
         vals = packed[sel]
         ch = [p.index_put(at, vals[:, c]) for c, p in enumerate(ch)]
-    return ch, len(rows)
+    return ch, spilled
 
 
-def plane_state_from_particles(state: ParticleState, spec: GridSpec) -> PlaneState:
+def plane_state_from_particles(state: ParticleState, spec: GridSpec,
+                               rows: tuple | None = None) -> PlaneState:
     """Initial binning: one sort + gather + plane build (the only one ever run).
 
     Per-cell capacity overflow is re-homed to the nearest free neighbour cell
     instead of dropped; ``lost`` is 0 unless a whole 5x5 neighbourhood is
-    packed solid."""
+    packed solid.  Ids (``state.ids``, else 0 .. n-1) go into ``idsf``
+    through :func:`encode_ids`.  ``rows = (a, b)`` builds grid rows ``a ..
+    b-1`` alone (a band of the mesh), with every particle still sorted and
+    spilled over the whole grid: those rows of the whole planes, and the
+    whole grid's ``lost``."""
     state = state.with_ids()
     n = state.n
-    if n > MAX_IDS:
-        raise ValueError(f"plane-resident ids are exact only to 2^24 (got {n})")
+    if n:
+        lo, hi = (int(v) for v in torch.aminmax(state.ids))
+        if lo < 0 or hi >= MAX_IDS:
+            raise ValueError(f"ids {lo}..{hi}: the idsf channel holds 0..{MAX_IDS - 1}")
     gh, gw, C = spec.gh, spec.gw, spec.capacity
+    a, b = (0, gh) if rows is None else rows
+    if not 0 <= a < b <= gh:
+        raise ValueError(f"rows {rows} of a grid of {gh}")
     grid = build_grid(spec, state.pos, with_table=False)
-    idsf = state.ids.to(torch.float32)
+    idsf = encode_ids(state.ids)
     packed = torch.cat([state.pos, state.vel, idsf[:, None]], dim=-1)[grid.perm.long()]
     fills = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)
-    cells = cell_planes_aos(packed, grid.starts, spec.num_cells, C, fills)
-    ch = [cells[..., i].reshape(gh, gw, C).contiguous() for i in range(5)]
-    ch, spilled = _spill_init_overflow(ch, packed, grid.sorted_keys, grid.slot, spec)
+    cells = cell_planes_aos(packed, grid.starts[a * gw:], (b - a) * gw, C, fills)
+    ch = [cells[..., i].reshape(b - a, gw, C).contiguous() for i in range(5)]
+    del cells
+    ch, spilled = _spill_init_overflow(ch, packed, grid, spec, a)
     return PlaneState(px=ch[0], py=ch[1], vx=ch[2], vy=ch[3], idsf=ch[4],
                       frame=state.frame, lost=(grid.overflow - spilled).to(torch.int32),
                       n=n)
@@ -141,8 +182,8 @@ def _planes_to_particles(ps: PlaneState):
     particles come last (ids >= n, SENTINEL positions, zero velocity)."""
     n = ps.n
     live = ps.live.reshape(-1)
-    ids = ps.idsf.to(torch.int32).reshape(-1)
-    key = torch.where(live, ids, n)
+    ids = decode_ids(ps.idsf).reshape(-1)
+    key = torch.where(live, ids, torch.iinfo(torch.int32).max)
     order = torch.argsort(key, stable=True)[:n]
     livc = live[order]
     pos = torch.stack([ps.px.reshape(-1)[order], ps.py.reshape(-1)[order]], dim=-1)

@@ -12,11 +12,12 @@ from .halo import exchange_halo
 from .mesh import BandMesh, make_band_mesh, run_bands
 from .plane_sharded import (DIAGS, check_plane_diags, make_plane_sharded_frame,
                             make_plane_sharded_step)
-from .shard import gather_plane_state, make_shard_spec, shard_plane_state
+from .shard import band_plane_state, gather_plane_state, make_shard_spec, shard_plane_state
 
 __all__ = [
     "BandMesh",
     "DIAGS",
+    "band_plane_state",
     "check_plane_diags",
     "exchange_halo",
     "gather_plane_state",

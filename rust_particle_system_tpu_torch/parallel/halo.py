@@ -24,7 +24,8 @@ def exchange_halo(top, bottom, mesh: BandMesh):
     (its rows next to the band below) down; return ``(lo, hi)``: the band
     below's ``top`` and the band above's ``bottom``, ``None`` past the mesh's
     edges.  A ``None`` payload is neither sent nor received; every band passes
-    payloads of the same shapes, or the same ``None``s.  A ``sph.halo`` span."""
+    payloads of the same shapes, or the same ``None``s.  A ``sph.halo`` span;
+    what arrives is counted on ``mesh.received`` by the side it came from."""
     up, down = mesh.rank + 1, mesh.rank - 1
     wire = mesh.wire
     ops, lo, hi = [], None, None
@@ -32,9 +33,10 @@ def exchange_halo(top, bottom, mesh: BandMesh):
     def send(t, peer):
         ops.append(dist.P2POp(dist.isend, t.to(wire).contiguous(), peer, mesh.group))
 
-    def recv(like, peer):
+    def recv(like, peer, side):
         buf = torch.empty(like.shape, dtype=like.dtype, device=wire)
         ops.append(dist.P2POp(dist.irecv, buf, peer, mesh.group))
+        mesh.count(side, buf)
         return buf
 
     with span("sph.halo"):
@@ -42,12 +44,12 @@ def exchange_halo(top, bottom, mesh: BandMesh):
             if top is not None:
                 send(top, up)
             if bottom is not None:
-                hi = recv(bottom, up)
+                hi = recv(bottom, up, "above")
         if down >= 0:
             if bottom is not None:
                 send(bottom, down)
             if top is not None:
-                lo = recv(top, down)
+                lo = recv(top, down, "below")
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()

@@ -43,13 +43,22 @@ BACKENDS = ("gloo", "nccl")
 @dataclasses.dataclass(frozen=True)
 class BandMesh:
     """This rank's view of the band mesh: its process group, the number of
-    bands, its band, its device and the group's backend."""
+    bands, its band, its device and the group's backend; and ``received``,
+    a host-side count of the bytes its exchanges and reductions received,
+    by direction (``"below"``, ``"above"``: the neighbour bands';
+    ``"reduce"``: the all_reduce results), taken from the buffers' shapes,
+    so counting costs the device nothing."""
 
     group: object  # torch.distributed ProcessGroup (None: the default group)
     size: int
     rank: int
     device: torch.device
     backend: str
+    received: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def count(self, direction: str, buf: torch.Tensor) -> None:
+        """Add ``buf``'s bytes to :attr:`received` under ``direction``."""
+        self.received[direction] = self.received.get(direction, 0) + buf.nbytes
 
     @property
     def wire(self) -> torch.device:
@@ -64,6 +73,7 @@ class BandMesh:
         with span("sph.reduce"):
             buf = t.to(self.wire)
             dist.all_reduce(buf, group=self.group)
+            self.count("reduce", buf)
             return buf.to(self.device)
 
 

@@ -2,7 +2,8 @@
 and the slabs gathered back.
 
 Counterpart of the grid-padding part of ``rust_particle_system_tpu/parallel/
-shard.py::make_shard_spec`` and of ``plane_sharded.py::shard_plane_state``.
+shard.py::make_shard_spec`` and of ``plane_sharded.py::shard_plane_state``,
+and a rank's band binned from the particles (:func:`band_plane_state`).
 The slot-stream fields of JAX's ``ShardSpec`` (``cap``, ``mig_cap``,
 ``mig_rounds``) belong to the legacy stream mesh, which is not ported, so
 :func:`make_shard_spec` returns the padded grid alone.  JAX's sharded arrays
@@ -18,7 +19,8 @@ import math
 import torch
 import torch.distributed as dist
 
-from ..ops.cuda.resident import PlaneState
+from ..core.state import ParticleState
+from ..ops.cuda.resident import PlaneState, plane_state_from_particles
 from ..ops.grid import GridSpec
 from .mesh import BandMesh
 
@@ -46,6 +48,16 @@ def shard_plane_state(ps: PlaneState, mesh: BandMesh) -> PlaneState:
     band = {f: getattr(ps, f)[rows].to(mesh.device, copy=True)
             for f in ("px", "py", "vx", "vy", "idsf")}
     return PlaneState(**band, frame=ps.frame, lost=ps.lost.to(mesh.device), n=ps.n)
+
+
+def band_plane_state(state: ParticleState, spec: GridSpec, mesh: BandMesh) -> PlaneState:
+    """This rank's band of the initial binning of ``state`` on the padded grid
+    ``spec``: ``shard_plane_state(plane_state_from_particles(state, spec),
+    mesh)`` bit for bit, with only the band's rows built (every particle is
+    still sorted and spilled over the whole grid), so no rank holds the whole
+    grid's planes."""
+    rows = _band_rows(spec.gh, mesh)
+    return plane_state_from_particles(state, spec, rows=(rows.start, rows.stop))
 
 
 def gather_plane_state(ps: PlaneState, mesh: BandMesh) -> PlaneState:
