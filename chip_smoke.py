@@ -20,10 +20,14 @@ line each:
      K5 and K1 bit-equal (K1 also on a state with air rows, at C=16 and
      C=64 on a small grid, and on the tile's edges: at C=16, 64, 128 and
      1024, a width of two tiles and 3 columns, T read from csrc/rebin.cu);
+     K1 asked for the walks' position planes on each of those states: its
+     planes and counts unchanged, its walk planes walk_positions of its
+     output bit for bit, and K1 with and without them timed in turns;
      K7 on each of 4 bands of the 1M state on the grid padded to 124 rows
      (with live rows past the grid's edges, which it must not read, with air
      rows across a band boundary, and 8 bands of one row on a small grid)
-     bit-equal to K1's rows and to its plain version; K9 (the hole-fill
+     bit-equal to K1's rows and to its plain version, its walk planes to
+     K1's rows of them; K9 (the hole-fill
      passes of rebin variants 4 and 5) in each of its four modes, each whole
      variant, and variant 5 against K1, bit-equal on the same states, and in
      band mode on the 4 x 31 rows; K12 (variants 2 and 3) bit-equal, also
@@ -717,8 +721,8 @@ def main() -> int:
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
         hole_fill_pass, hole_fill_pass_plain, rebin_compact, rebin_compact_plain,
-        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain,
-        retention_merge)
+        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_band_walk,
+        rebin_planes_plain, rebin_planes_walk, retention_merge)
     from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
@@ -885,6 +889,36 @@ def main() -> int:
     print("phase 2: K1 bit-equal (1M stepped, air rows, C=16 and C=64 x drift 0.4/0.9/1.8, "
           f"tile edges: {', '.join(tile_grids)})")
 
+    # K1 asked for the walks' position planes, as the frame asks: the same
+    # planes and counts, and walk planes that are walk_positions of them bit
+    # for bit, on each state above; then K1 with and without them in turns
+    # (without, with, with, without; events and the profiler's kernel time).
+    bits = lambda t: t.view(torch.int32)
+    deferred = {}
+    for label, (pl, sp) in {"1M stepped": (rin, spec), "air rows": (air, spec),
+                            **tile_grids}.items():
+        x, cx = rebin_planes(pl, sp)
+        y, cy, (wx, wy) = rebin_planes_walk(pl, sp)
+        mx, my = R.walk_positions(y[0], y[1], sp)
+        require(all(torch.equal(p, q) for p, q in zip(x, y)) and torch.equal(cx, cy),
+                f"K1 asked for the walk planes wrote other planes or counts ({label})")
+        require(torch.equal(bits(wx), bits(mx)) and torch.equal(bits(wy), bits(my)),
+                f"K1's walk planes differ from walk_positions of its output ({label})")
+        deferred[label] = int(((y[0] < 5e5) & ~(wx < 5e5)).sum())
+    require(all(v > 0 for k, v in deferred.items() if "drift 1.8" in k),
+            f"a state with movers of more than one cell deferred nothing: {deferred}")
+    k1_base = lambda: rebin_planes(rin, spec)
+    k1_walk = lambda: rebin_planes_walk(rin, spec)
+    k1_turns = {"events": [], "profiler": []}
+    for f in (k1_base, k1_walk, k1_walk, k1_base):
+        k1_turns["events"].append(cuda_ms(f, 50))
+        k1_turns["profiler"].append(device_ms(f, 20))
+    ms4 = {k: [round(t, 4) for t in v] for k, v in k1_turns.items()}
+    print("phase 2: K1's walk planes bit-equal to walk_positions of its output, its planes and "
+          f"counts unchanged (deferred slots: {json.dumps(deferred)}); K1 without / with / with / "
+          f"without the walk planes, ms a call: events {ms4['events']}, kernel by the profiler "
+          f"{ms4['profiler']} [{card}]")
+
     # K7: the 1M state on the grid padded to 4 bands (gh 121 -> 124, 31 rows
     # each), a few frames in; each band's K7 (ghost rows from the neighbour
     # bands, zeros past the grid's edges) against K1's rows of the whole grid
@@ -894,6 +928,7 @@ def main() -> int:
         """``past``: the value of the ghost rows past the grid's edges (1.5 is
         a live position: a read there would change the result)."""
         full, cfull = rebin_planes(planes, sp)
+        _, _, full_walk = rebin_planes_walk(planes, sp)
         Rb = sp.gh // n_bands
         edge = torch.full_like(planes[0][0], past)
         row = lambda c, r: planes[c][r] if 0 <= r < sp.gh else edge
@@ -911,6 +946,12 @@ def main() -> int:
                     and torch.equal(cx, cy) and torch.equal(cx, cfull[r0 * sp.gw:(r0 + Rb) * sp.gw]),
                     f"K7 band {b} of {n_bands} ({label}) differs from K1's rows or its plain "
                     "version")
+            xw, cxw, walk = rebin_planes_band_walk(*args7)
+            require(all(torch.equal(p, q) for p, q in zip(xw, x)) and torch.equal(cxw, cx)
+                    and all(torch.equal(w.view(torch.int32), f[rows_b].view(torch.int32))
+                            for w, f in zip(walk, full_walk)),
+                    f"K7 band {b} of {n_bands} ({label}) asked for the walk planes differs "
+                    "from K7 not asked or from K1's rows of the walk planes")
             calls.append((args7, x, cx))
             err = max([err] + [max_abs(p, q) for p, q in zip(x, y)])
         return calls, err
@@ -941,8 +982,9 @@ def main() -> int:
            nbytes(*args7[0], *args7[4], *args7[5], *args7[6], *out7, cnt7), 0)
     print("phase 2: K7 bit-equal to K1's rows and to its plain version (1M on 4 x 31 rows, "
           "with live rows past the edges, air rows across a band boundary, 8 bands x 1 row x "
-          f"drift 0.4/0.9/1.8); an inner band {rows['K7']['ms']:.4f} ms a call by events, "
-          f"its kernel {k7_dev:.4f} ms by the profiler [{card}]")
+          "drift 0.4/0.9/1.8), its walk planes K1's rows of them; an inner band "
+          f"{rows['K7']['ms']:.4f} ms a call by events, its kernel {k7_dev:.4f} ms by the "
+          f"profiler [{card}]")
 
     # K9: the separable hole-fill pass of rebin variants 4 and 5, in each of
     # its four modes (pass Y / pass X, lossy / lossless) against its plain

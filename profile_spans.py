@@ -27,7 +27,12 @@ not carry the spans (PERF.md §7), so this tool adds them to it.  Per seed:
               frame and the bytes it received a frame by direction (the
               mesh's counter, ``BandMesh.received``, over one frame);
   no_span     the share of the cycle's device busy time under no span;
-  traced_frame_ms  the traced window over its frames (the profiler on).
+  traced_frame_ms  the traced window over its frames (the profiler on);
+  deferred    per band (one on one card): the slots the defer mask parked
+              in the last frame the program stepped, as a count and as a
+              share of the live slots, read from the walk x plane against
+              the rebinned x plane after the run (the frame keeps references
+              to the two planes; nothing is counted inside the frames).
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -61,18 +66,34 @@ def _span_table(events, frames: int, port) -> dict:
                 "torch_ms": v[2] / 1e3 / frames} for k, v in sorted(rows.items())}
 
 
+def _deferred(last: dict) -> dict | None:
+    """The slots the defer mask parked in the kept frame: live in the
+    rebinned x plane, parked in the walk x plane."""
+    from rust_particle_system_tpu_torch.ops.cuda.rebin import SENTINEL
+
+    if not last:
+        return None
+    live = last["npx"] < 0.5 * SENTINEL
+    slots = int((live & ~(last["fpx"] < 0.5 * SENTINEL)).sum())
+    n = int(live.sum())
+    return {"slots": slots, "live": n, "share": slots / n if n else None}
+
+
 def _band(mesh, c: dict, seed: int, device: str = "cuda") -> dict:
     """One band's (or the one card's) traced run: its reading carries the
-    spans, the span table and the bytes the band received in its last
-    frame, by direction."""
+    spans, the span table, the bytes the band received in its last frame,
+    by direction, and the deferred slots of its last frame."""
     import torch
 
     from harness import cell, spans, spec, trace, window
+    from rust_particle_system_tpu_torch.ops.cuda import resident
+    from rust_particle_system_tpu_torch.parallel import plane_sharded
 
     glue = spec.metric("glue_ms", c["bench"])
     port = [re.compile(p) for p in glue.PORT_KERNELS]
     read, loop_init = trace.read, window.Loop.__init__
-    received = {}
+    walk_and_integrate = resident.walk_and_integrate
+    received, last = {}, {}
 
     def read_with_spans(prof, frames, *rest, **kw):
         r = read(prof, frames, *rest, **kw)
@@ -90,13 +111,22 @@ def _band(mesh, c: dict, seed: int, device: str = "cuda") -> dict:
 
         loop_init(self, frame if mesh is None else counted, *rest, **kw)
 
+    def kept_walk(rebinned, *rest, **kw):
+        planes, fpx = walk_and_integrate(rebinned, *rest, **kw)
+        last["npx"], last["fpx"] = rebinned[0], fpx
+        return planes, fpx
+
     trace.read, window.Loop.__init__ = read_with_spans, counted_loop
+    resident.walk_and_integrate = plane_sharded.walk_and_integrate = kept_walk
     try:
         out = cell.run(c, seed, 1.0, True,
                        torch.device(device if mesh is None else mesh.device), mesh)
     finally:
         trace.read, window.Loop.__init__ = read, loop_init
+        resident.walk_and_integrate = plane_sharded.walk_and_integrate = walk_and_integrate
     out["reading"].received = received
+    out["reading"].deferred = _deferred(last)
+    last.clear()
     return out
 
 
@@ -146,13 +176,15 @@ def main(argv=None) -> int:
                "no_span": (r.table.get("null", {}).get("ms", 0.0) / busy_ms
                            if busy_ms else None),
                "traced_frame_ms": 1e3 * r.window_s / r.frames,
-               "idle_gaps": trace.idle_gaps(readings)}
+               "idle_gaps": trace.idle_gaps(readings),
+               "deferred": [x.deferred for x in readings]}
         if len(readings) > 1:
             run["bands"] = [{"sph.halo_ms": ms(x, "sph.halo"), "sph.reduce_ms": ms(x, "sph.reduce"),
                              "received_bytes": x.received} for x in readings]
         out["runs"].append(run)
         print(json.dumps({k: run.get(k) for k in ("seed", "correct", "glue", "bands", "no_span",
-                                                  "traced_frame_ms")}), flush=True)
+                                                  "traced_frame_ms", "deferred")}),
+              flush=True)
     text = json.dumps(out, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -30,6 +30,10 @@
 //            is not r stay put (rebin.py:641-662).
 //   X-retention  needs mid of columns c-2..c+1 (rebin.py:682-689).
 //   counts   live slots per cell after both passes.
+//   walk     (if asked for) the walks' position planes: each out slot's x/y,
+//            or SENTINEL for a DEFERRED slot, live but keyed to another cell
+//            than its own (the JAX resident.py:264-273; walk_positions in
+//            ops/cuda/rebin.py).
 //
 // Bound on the H100: memory.  The least traffic reads the k planes once and
 // writes them once (132.6 MB at 1M particles, C=128, k=5).  Two facts make
@@ -69,6 +73,11 @@
 // The JAX kernel's air-window skip (rebin.py:512-538) is an exact shortcut of
 // the same result: here a column with nothing live ranks empty ballots,
 // composes fills and gathers nothing.
+//
+// The walk planes cost two stores a slot: phase X holds each out slot's x/y
+// and the block's cuts of row r and of column c, so "key == (r, c)" is four
+// compares, and the defer mask needs no pass of its own.  Rows and columns are
+// global, so K7 writes a band's rows of K1's walk planes.
 
 #include "common.cuh"
 
@@ -182,6 +191,17 @@ struct Cuts {
     if (!row.at(ay) || below.at(ay)) return 0;  // key row is not r
     return !col.at(ax) ? kLeft : (right.at(ax) ? kRight : 0);
   }
+  // Whether (x, y) keys to cell (r, c') itself.
+  __device__ __forceinline__ bool home(float x, float y) const {
+    const float ay = y - y_min, ax = x - x_min;
+    return row.at(ay) && !below.at(ay) && col.at(ax) && !right.at(ax);
+  }
+};
+
+// The walks' position planes, [rows, gw, C] each; null when not asked for.
+struct WalkPlanes {
+  float* x;
+  float* y;
 };
 
 // x/y of one slot in the four rows phase Y reads.
@@ -316,14 +336,18 @@ __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, i
 
 // Phase X for own column c of row r, by one warp, on the shared words of
 // columns c-2..c+1 (mid + d * C is column c + d): the composed sources, the
-// gather and the cell's count.
+// gather, the walk planes and the cell's count.  k: the row's cuts; xcut:
+// this column's.
 __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
-                                         int* __restrict__ counts, const rps::Fills& fills,
-                                         const Geom& g, int r, int c, const int* mid,
+                                         const WalkPlanes& walk, int* __restrict__ counts,
+                                         const rps::Fills& fills, const Geom& g, int r, int c,
+                                         Cuts k, const float* xcut, const int* mid,
                                          unsigned* bal) {
   const int lane = threadIdx.x & 31, C = g.C, nchunk = (C + 31) / 32;
   const unsigned below = (1u << lane) - 1u;
   const bool has_l = c >= 1, has_r = c <= g.gw - 2, has_l2 = c >= 2;
+  k.col = cut_of(c, g.gw, xcut);
+  k.right = cut_of(c + 1, g.gw, xcut + 1);
   const auto moves = [](int m, int way) { return (m & 3) == way; };  // false for -1
 
   // Pass 1.  0 kg0 (column c-1's slot moves here), 1 kg1 (column c+1's),
@@ -379,6 +403,10 @@ __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
     const size_t o = o0 + s;
     if (cd < 0) {
       for_channels(g.k, [&](int ch) { out.p[ch][o] = fills.v[ch]; });
+      if (walk.x) {
+        walk.x[o] = fills.v[0];
+        walk.y[o] = fills.v[1];
+      }
       continue;
     }
     const int t = cd >> 10, dr = t % 3 - 1, dc = t / 3 - 1;
@@ -386,6 +414,11 @@ __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
     float v[rps::kMaxChannels];
     for_channels(g.k, [&](int ch) { v[ch] = __ldg(row_of(src, g, ch, r + dr) + from); });
     for_channels(g.k, [&](int ch) { out.p[ch][o] = v[ch]; });
+    if (walk.x) {
+      const bool defer = v[0] < kLiveBelow && !k.home(v[0], v[1]);
+      walk.x[o] = defer ? rps::kSentinel : v[0];
+      walk.y[o] = defer ? rps::kSentinel : v[1];
+    }
   }
   if (lane == 0) counts[(r - g.row0) * g.gw + c] = live;
   __syncwarp();  // the scratch is rewritten by the warp's next column
@@ -394,6 +427,7 @@ __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
 // Block (x, y): own columns [x T, x T + T) (those inside the grid) of own
 // row row0 + y, T = tile_cols(C) - 3.
 __global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes out,
+                                                           WalkPlanes walk,
                                                            int* __restrict__ counts,
                                                            rps::Fills fills, Geom g) {
   extern __shared__ int smem[];
@@ -426,7 +460,8 @@ __global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes ou
   __syncthreads();
   for (int j = 2 + warp; j < 2 + T; j += kTileWarps) {
     const int c = c0 - 2 + j;
-    if (c < g.gw) column_x(src, out, counts, fills, g, r, c, mid + j * C, bal);
+    if (c < g.gw) column_x(src, out, walk, counts, fills, g, r, c, k, cuts + j, mid + j * C,
+                           bal);
   }
 }
 
@@ -436,7 +471,8 @@ __global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes ou
 // own: k device pointers, each a [rows, gw, C] f32 plane (channels 0/1 are
 // x/y); lo2: x/y of global row row0-2, lo1/hi1: every channel of rows row0-1
 // and row0+rows, each [gw, C] (K7; null for K1, rows = gh); out: k [rows, gw,
-// C] planes; counts: [rows*gw] i32.  gh is the whole grid's height; the
+// C] planes; walk: the walks' x/y planes, [rows, gw, C] each, or both null;
+// counts: [rows*gw] i32.  gh is the whole grid's height; the
 // launch owns global rows [row0, row0 + rows).  fills[0] must be >= 0.5 *
 // SENTINEL (a filled slot is dead); the wrapper checks it.
 struct rps_rebin_args {
@@ -445,6 +481,7 @@ struct rps_rebin_args {
   const float* lo1[8];
   const float* hi1[8];
   float* out[8];
+  float* walk[2];
   int* counts;
   float fills[8];
   int k, gh, gw, C, row0, rows;
@@ -456,7 +493,7 @@ extern "C" int rps_rebin(const void* packed, int size) {
   rps_rebin_args a;
   if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.k < 2 || a.k > rps::kMaxChannels || a.C < 1 || a.C > kMaxC || a.rows < 1 ||
-      a.row0 < 0 || a.row0 + a.rows > a.gh || a.gw < 1 ||
+      a.row0 < 0 || a.row0 + a.rows > a.gh || a.gw < 1 || !a.walk[0] != !a.walk[1] ||
       static_cast<long long>(a.gh) * a.gw >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Src src{};
@@ -480,8 +517,8 @@ extern "C" int rps_rebin(const void* packed, int size) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((a.gw + T - 1) / T, a.rows);
-  rebin_tile<<<grid, kTileThreads, shmem, static_cast<cudaStream_t>(a.stream)>>>(src, out,
-                                                                                a.counts,
-                                                                                fills, g);
+  const WalkPlanes walk{a.walk[0], a.walk[1]};
+  rebin_tile<<<grid, kTileThreads, shmem, static_cast<cudaStream_t>(a.stream)>>>(
+      src, out, walk, a.counts, fills, g);
   return static_cast<int>(cudaGetLastError());
 }

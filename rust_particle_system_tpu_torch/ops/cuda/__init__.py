@@ -3,8 +3,10 @@
 Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; each counts its launches in ``.launches``.
 
-    K1  rebin.rebin_planes                  csrc/rebin.cu
-    K7  rebin.rebin_planes_band             csrc/rebin.cu (K1's kernel on a band)
+    K1  rebin.rebin_planes, rebin.rebin_planes_walk (with the walk planes)
+                                            csrc/rebin.cu
+    K7  rebin.rebin_planes_band, rebin.rebin_planes_band_walk
+                                            csrc/rebin.cu (K1's kernel on a band)
     K9  rebin.hole_fill_pass                csrc/rebin_pass.cu (rebin variants 4, 5)
     K12 rebin.rebin_compact                 csrc/rebin_compact.cu (rebin variants 2, 3)
     K2  sph.density_planes, sph.density_pressure_planes (with the pressure terms)

@@ -8,7 +8,10 @@ of ``rebin_planes``:
   (:func:`rebin_planes`, JAX ``_rebin_v6``); kernel K7, the same CUDA kernel
   on one band's slab, its ghost rows read where they lie and its rows tested
   in global rows, replaces it as driven by ``_rebin_v6_band``
-  (:func:`rebin_planes_band`, for the band-sharded mesh);
+  (:func:`rebin_planes_band`, for the band-sharded mesh).  Asked for them
+  (:func:`rebin_planes_walk`, :func:`rebin_planes_band_walk`), K1 and K7 also
+  write the walks' position planes, the defer mask of :func:`walk_positions`
+  on their output;
 * variants 4 (lossy) and 5 (lossless, bit-identical to 6), the separable
   hole-fill: two passes of kernel K9 (``csrc/rebin_pass.cu``,
   :func:`hole_fill_pass`, JAX ``_make_kernel_v4`` driven by
@@ -335,6 +338,20 @@ def rebin_compact_plain(planes, spec: GridSpec, fills):
     return outs, keep.sum(-1, dtype=torch.int32)
 
 
+def walk_positions(npx, npy, spec: GridSpec, row0: int = 0):
+    """The walks' position planes: DEFERRED slots (live, but resident in another
+    cell than their key) are parked at SENTINEL (resident.py:264-273).  The
+    planes' first row is global row ``row0`` of ``spec`` (a band's slab on the
+    band-sharded mesh, JAX plane_sharded.py:207-216)."""
+    kx = cell_index(npx, spec.x_min, spec.cell_width, spec.gw)
+    ky = cell_index(npy, spec.y_min, spec.cell_size, spec.gh)
+    cellx = torch.arange(spec.gw, dtype=torch.int32, device=npx.device)[None, :, None]
+    celly = (row0 + torch.arange(npx.shape[0], dtype=torch.int32,
+                                 device=npx.device))[:, None, None]
+    defer = (npx < 0.5 * SENTINEL) & ((kx != cellx) | (ky != celly))
+    return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
+
+
 _rebin_kernel = _lib.kernel("rps_rebin")
 _hole_fill_kernel = _lib.kernel("rps_hole_fill_pass")
 _compact_kernel = _lib.kernel("rps_rebin_compact")
@@ -344,11 +361,13 @@ def _ptrs(tensors) -> tuple:
     return _lib.pad8([t.data_ptr() for t in tensors])
 
 
-def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None):
+def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None,
+                  walk: bool = False):
     """Launch the rebin kernel on the ``[rows, gw, C]`` planes of global rows
     [row0, row0 + rows); ``ghosts``: K7's ghost rows ``(lo2, lo1, hi1)``, each
     a ``[gw, C]`` row (None for K1 on the whole grid, whose ghost rows lie
-    outside it)."""
+    outside it).  Returns (planes, counts), and with ``walk`` the walk planes
+    (wx, wy) as a third item."""
     k = len(planes)
     if not 2 <= k <= 8:
         raise ValueError("the rebin kernel takes 2..8 channels")
@@ -364,11 +383,13 @@ def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None):
         ptrs = [t.data_ptr() for t in ghost_rows]
         ghost_ptrs = (*ptrs[:2], *_lib.pad8(ptrs[2:2 + k]), *_lib.pad8(ptrs[2 + k:]))
     out = _lib.empty_f32(k, planes[0].shape, planes[0])
+    wxy = _lib.empty_f32(2, planes[0].shape, planes[0]) if walk else None
+    walk_ptrs = (wxy[0].data_ptr(), wxy[1].data_ptr()) if walk else (0, 0)
     counts = torch.empty(rows * gw, dtype=torch.int32, device=planes[0].device)
-    _rebin_kernel(*_ptrs(planes), *ghost_ptrs, *_ptrs(out), counts.data_ptr(),
+    _rebin_kernel(*_ptrs(planes), *ghost_ptrs, *_ptrs(out), *walk_ptrs, counts.data_ptr(),
                   *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, spec.x_min,
                   spec.y_min, spec.cell_width, spec.cell_size)
-    return out, counts
+    return (out, counts, tuple(wxy)) if walk else (out, counts)
 
 
 def hole_fill_pass(flats, spec: GridSpec, fills, shift: int, row_only: bool,
@@ -476,8 +497,7 @@ def rebin_planes(planes, spec: GridSpec, fills=None, variant: int = 6):
     CUDA tensors; each runs its plain version for CPU tensors.  Any other
     variant raises ValueError."""
     check_variant(variant)
-    if tuple(planes[0].shape) != (spec.gh, spec.gw, spec.capacity):
-        raise ValueError(f"planes {tuple(planes[0].shape)} do not match {spec}")
+    _check_grid(planes, spec)
     fills = _fills(planes, fills)
     if _lib.dispatch(planes[0]) == "plain":
         return rebin_planes_plain(planes, spec, fills, variant)
@@ -493,6 +513,28 @@ def rebin_planes(planes, spec: GridSpec, fills=None, variant: int = 6):
 rebin_planes.launches = 0
 
 
+def _check_grid(planes, spec: GridSpec) -> None:
+    if tuple(planes[0].shape) != (spec.gh, spec.gw, spec.capacity):
+        raise ValueError(f"planes {tuple(planes[0].shape)} do not match {spec}")
+
+
+def rebin_planes_walk(planes, spec: GridSpec, fills=None):
+    """:func:`rebin_planes` (variant 6, K1) that also writes the walks'
+    position planes.  Returns ``(planes, counts, (wx, wy))``: (wx, wy) are
+    :func:`walk_positions` of the output x/y, deferred slots parked at
+    SENTINEL, which K1 decides by its key cuts as it writes each slot.
+    Counts its launches in ``rebin_planes.launches`` (K1's).  Runs
+    :func:`rebin_planes_plain` then :func:`walk_positions` for CPU tensors."""
+    _check_grid(planes, spec)
+    fills = _fills(planes, fills)
+    if _lib.dispatch(planes[0]) == "plain":
+        out, counts = rebin_planes_plain(planes, spec, fills)
+        return out, counts, walk_positions(out[0], out[1], spec)
+    out = _rebin_launch(planes, spec, fills, 0, walk=True)
+    rebin_planes.launches += 1
+    return out
+
+
 def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
     """Kernel K7: :func:`rebin_planes` on one band's ``[R, gw, C]`` slab of the
     grid ``spec``, whose first row is global row ``row0``.
@@ -504,12 +546,7 @@ def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
     whole grid.  Ghost rows outside the grid may hold anything: no decision
     reads them.  Launches K7 for CUDA tensors; runs the plain version for CPU
     tensors."""
-    R, gw, C = planes[0].shape
-    if (gw, C) != (spec.gw, spec.capacity) or not 0 <= row0 <= spec.gh - R:
-        raise ValueError(f"a [{R}, {gw}, {C}] slab at row {row0} does not fit {spec}")
-    if len(lo2) != 2 or len(lo1) != len(planes) or len(hi1) != len(planes):
-        raise ValueError("lo2 holds x and y; lo1 and hi1 hold every channel")
-    fills = _fills(planes, fills)
+    fills = _check_band(planes, spec, fills, row0, lo2, lo1, hi1)
     if _lib.dispatch(planes[0]) == "plain":
         return rebin_planes_band_plain(planes, spec, fills, row0, lo2, lo1, hi1)
     out = _rebin_launch(planes, spec, fills, row0, (lo2, lo1, hi1))
@@ -519,3 +556,28 @@ def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
 
 rebin_planes_band.launches = 0
 
+
+def _check_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1) -> tuple:
+    """Raise unless the slab and its ghost rows fit ``spec``; the fills."""
+    R, gw, C = planes[0].shape
+    if (gw, C) != (spec.gw, spec.capacity) or not 0 <= row0 <= spec.gh - R:
+        raise ValueError(f"a [{R}, {gw}, {C}] slab at row {row0} does not fit {spec}")
+    if len(lo2) != 2 or len(lo1) != len(planes) or len(hi1) != len(planes):
+        raise ValueError("lo2 holds x and y; lo1 and hi1 hold every channel")
+    return _fills(planes, fills)
+
+
+def rebin_planes_band_walk(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
+    """:func:`rebin_planes_band` (K7) that also writes the walks' position
+    planes of the band's rows: ``(planes, counts, (wx, wy))``, bit-identical
+    to those rows of :func:`rebin_planes_walk` on the whole grid.  Counts its
+    launches in ``rebin_planes_band.launches`` (K7's).  Runs
+    :func:`rebin_planes_band_plain` then :func:`walk_positions` for CPU
+    tensors."""
+    fills = _check_band(planes, spec, fills, row0, lo2, lo1, hi1)
+    if _lib.dispatch(planes[0]) == "plain":
+        out, counts = rebin_planes_band_plain(planes, spec, fills, row0, lo2, lo1, hi1)
+        return out, counts, walk_positions(out[0], out[1], spec, row0)
+    out = _rebin_launch(planes, spec, fills, row0, (lo2, lo1, hi1), walk=True)
+    rebin_planes_band.launches += 1
+    return out

@@ -3,8 +3,9 @@
 Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
 single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
 K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
-the rebin of the chosen ``variant``: the lossless K1 by default, two K9 passes
-for 4 and 5, K12 for 2 and 3; for 5 and 6 the defer mask, the density walk K2
+the rebin of the chosen ``variant``: the lossless K1 by default, which also
+writes the walks' position planes (the defer mask), two K9 passes for 4 and 5,
+K12 for 2 and 3; for 5 the defer mask in torch; for 5 and 6 the density walk K2
 with the pressure terms in its epilogue, the fused force walk K3 with the
 frame tail, or with ``fuse_tail=False`` the raw walk K3b and the tail in
 torch; for 2-4 no defer mask and always the raw walk), ``plane_frame`` (a
@@ -18,7 +19,9 @@ Each frame is one ``sph.frame`` span, its phases spans inside it
 (:func:`~...runtime.profiling.span`: ``sph.count``, ``sph.predict``,
 ``sph.rebin``, ``sph.defer``, ``sph.density``, ``sph.pressure``, ``sph.force``,
 ``sph.tail``, ``sph.render``), so a profile of the frame splits its device
-time by phase; with no profiler recording each is one shared no-op.
+time by phase; with no profiler recording each is one shared no-op.  The
+default rebin writes the walk planes under ``sph.rebin``, so its frames have
+no ``sph.defer``.
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ from ...core.params import SimParams, f32_mul
 from ...core.state import ParticleState
 from ...render.splat_planes import WHITE, drifted_patch_margin, raster_planes, render_geometry
 from ...runtime.profiling import span
-from ..grid import GridSpec, build_grid, cell_index
+from ..grid import GridSpec, build_grid
 from .plane_build import cell_planes_aos
-from .rebin import SENTINEL, check_variant, rebin_planes
+from .rebin import SENTINEL, check_variant, rebin_planes, rebin_planes_walk, walk_positions
 from .sph_step import _forces_from_cells, _velocities_from_cells
 
 ID_EXACT = 1 << 24  # ids below it ride the f32 ``idsf`` channel as their value
@@ -218,20 +221,6 @@ def predict_planes(ps: PlaneState, params: SimParams) -> list:
     return [predx, predy, vxp, vyp, ps.idsf]
 
 
-def walk_positions(npx, npy, spec: GridSpec, row0: int = 0):
-    """The walks' position planes: DEFERRED slots (live, but resident in another
-    cell than their key) are parked at SENTINEL (resident.py:264-273).  The
-    planes' first row is global row ``row0`` of ``spec`` (a band's slab on the
-    band-sharded mesh, JAX plane_sharded.py:207-216)."""
-    kx = cell_index(npx, spec.x_min, spec.cell_width, spec.gw)
-    ky = cell_index(npy, spec.y_min, spec.cell_size, spec.gh)
-    cellx = torch.arange(spec.gw, dtype=torch.int32, device=npx.device)[None, :, None]
-    celly = (row0 + torch.arange(npx.shape[0], dtype=torch.int32,
-                                 device=npx.device))[:, None, None]
-    defer = (npx < 0.5 * SENTINEL) & ((kx != cellx) | (ky != celly))
-    return torch.where(defer, SENTINEL, npx), torch.where(defer, SENTINEL, npy)
-
-
 def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
     """The torch frame tail of ``fuse_tail=False`` (JAX resident.py:291-322):
     deferred slots keep their post-gravity velocity, integrate from the
@@ -251,19 +240,23 @@ def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
 
 
 def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: bool,
-                       row0: int = 0, halo=None, defer: bool = True):
+                       row0: int = 0, halo=None, defer: bool = True, walk=None):
     """The frame after the rebin: the defer mask, the walks (K2 + K3, or K3b
     and the torch tail with ``fuse_tail=False``; K6 for ``spec.pack2``) and
     the re-parked ids, on the rebinned channels (px, py, vx, vy, idsf).  On a
     band's slab, ``row0`` is its first global row and ``halo`` brings the
-    walks' ghost rows (see :mod:`.sph_step`).  ``defer=False`` (rebin
-    variants 2-4, JAX resident.py:297-300) walks every live slot where it is,
-    through the raw walk and the torch tail whatever ``fuse_tail`` says.
-    Returns the new (px, py, vx, vy, idsf) planes and the walk x plane
-    (deferred slots parked)."""
+    walks' ghost rows (see :mod:`.sph_step`).  ``walk``: the walk planes
+    (wx, wy) where the rebin wrote them (K1, K7), else the defer mask
+    computes them here.  ``defer=False`` (rebin variants 2-4, JAX
+    resident.py:297-300) walks every live slot where it is, through the raw
+    walk and the torch tail whatever ``fuse_tail`` says.  Returns the new
+    (px, py, vx, vy, idsf) planes and the walk x plane (deferred slots
+    parked)."""
     npx, npy, nvx0, nvy0, nidsf = rebinned
     fpx, fpy = npx, npy
-    if defer:
+    if walk is not None:
+        fpx, fpy = walk
+    elif defer:
         with span("sph.defer"):
             fpx, fpy = walk_positions(npx, npy, spec, row0)
     if fuse_tail and defer:
@@ -279,10 +272,11 @@ def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: b
 
 def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
                   fuse_tail: bool = True, variant: int = 6) -> PlaneState:
-    """One live physics frame: gravity + predict, rebin (K1), defer mask, density
-    walk with the pressure terms (K2), then the fused force walk with the frame tail
-    (K3), or with ``fuse_tail=False`` the raw force walk (K3b) and the tail in
-    torch (the same math in another order of rounding).
+    """One live physics frame: gravity + predict, rebin (K1, which also writes
+    the walk planes: the defer mask), density walk with the pressure terms
+    (K2), then the fused force walk with the frame tail (K3), or with
+    ``fuse_tail=False`` the raw force walk (K3b) and the tail in torch (the
+    same math in another order of rounding).
 
     The default rebin (variant 6; 5 is bit-identical) is LOSSLESS: movers that
     find no free slot, and >1-cell/frame movers in transit, stay in their slot
@@ -293,13 +287,17 @@ def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
         live_before = ps.live.sum(dtype=torch.int32)
     with span("sph.predict"):
         chans = predict_planes(ps, params)
+    walk = None
     with span("sph.rebin"):
-        rebinned, counts = rebin_planes(chans, spec, variant=variant)
+        if variant == 6:
+            rebinned, counts, walk = rebin_planes_walk(chans, spec)
+        else:
+            rebinned, counts = rebin_planes(chans, spec, variant=variant)
     del chans  # four predicted planes, not to be held through the walks
     with span("sph.count"):
         lost = ps.lost + (live_before - counts.clamp_max(spec.capacity).sum(dtype=torch.int32))
     (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(
-        rebinned, spec, params, fuse_tail, defer=variant in (5, 6))
+        rebinned, spec, params, fuse_tail, defer=variant in (5, 6), walk=walk)
     return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2, idsf=idsf, frame=ps.frame,
                       lost=lost, n=ps.n)
 

@@ -17,7 +17,7 @@ Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
 2. rebin ghost rows, K7                                 one exchange (two at R=1)
    or variant 5: ghost rows, K9 pass Y                  one exchange
                  adoption return, merge, K9 pass X      one exchange
-3. defer mask in global rows
+3. defer mask in global rows (variant 6: written by K7 with its planes)
 4. the walk planes' ghost rows, density walk            one exchange
 5. the pressure terms' ghost rows, force walk + tail    one exchange
 6. diagnostics                                          one int32 all_reduce
@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band,
+from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band_walk,
                                retention_merge)
 from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
 from ..render.splat import splat_resolve
@@ -89,14 +89,15 @@ def _local_plane_physics(ps: PlaneState, params, spec, mesh: BandMesh,
         live_before = ps.live.sum(dtype=torch.int32)
     with span("sph.predict"):
         chans = predict_planes(ps, params)
+    walk = None
     with span("sph.rebin"):
         if rebin_variant == 5:
             rebinned = _rebin_v5_band(chans, spec, row0, mesh)
         else:
-            rebinned, _ = rebin_planes_band(chans, spec, FILLS, row0,
-                                            *rebin_halo(chans, FILLS, mesh))
+            rebinned, _, walk = rebin_planes_band_walk(chans, spec, FILLS, row0,
+                                                       *rebin_halo(chans, FILLS, mesh))
     planes, fpx = walk_and_integrate(rebinned, spec, params, fuse_tail, row0,
-                                     functools.partial(halo_rows, mesh=mesh))
+                                     functools.partial(halo_rows, mesh=mesh), walk=walk)
     with span("sph.count"):
         live = planes[0] < 0.5 * SENTINEL
         deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)

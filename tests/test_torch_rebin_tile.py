@@ -472,3 +472,94 @@ def test_model_band_slabs_read_ghost_rows_in_place(n_bands):
             np.testing.assert_array_equal(g, w.numpy()[r0:r0 + Rb])
         np.testing.assert_array_equal(gc, pc.numpy())
         np.testing.assert_array_equal(gc, wc.numpy()[r0 * 11:(r0 + Rb) * 11])
+
+
+# ---------------- the walk planes: phase X's defer test by the cuts ----------------
+
+
+def model_walk(outs, spec: GridSpec, row0: int = 0):
+    """Phase X's walk stores, asked for: each out slot's x/y, or SENTINEL
+    where it is live and not home, "home" tested by the block's cuts of its
+    row r and its column c (``Cuts::home``)."""
+    x, y = outs[0], outs[1]
+    rows, gw, _ = x.shape
+    wx, wy = x.copy(), y.copy()
+    for yy in range(rows):
+        r = row0 + yy
+        ky_row, ky_below = (cut(j, spec.cell_size, spec.gh) for j in (r, r + 1))
+        for c in range(gw):
+            kx_col, kx_right = (cut(j, spec.cell_width, gw) for j in (c, c + 1))
+            ax, ay = x[yy, c] - F32(spec.x_min), y[yy, c] - F32(spec.y_min)
+            home = at(ky_row, ay) & ~at(ky_below, ay) & at(kx_col, ax) & ~at(kx_right, ax)
+            defer = (x[yy, c] < 0.5 * SENTINEL) & ~home
+            wx[yy, c] = np.where(defer, F32(SENTINEL), x[yy, c])
+            wy[yy, c] = np.where(defer, F32(SENTINEL), y[yy, c])
+    return wx, wy
+
+
+def test_the_kernel_defers_by_the_home_test():
+    """The walk stores park a slot that is live and not home, home being
+    the key row's two cuts and the key column's two, as modelled."""
+    home = re.search(r"bool home\(float x, float y\) const \{(.*?)\n  \}", SRC, re.S).group(1)
+    assert "return row.at(ay) && !below.at(ay) && col.at(ax) && !right.at(ax);" in home
+    assert "const bool defer = v[0] < kLiveBelow && !k.home(v[0], v[1]);" in SRC
+    assert "walk.x[o] = defer ? rps::kSentinel : v[0];" in SRC
+    assert "walk.x[o] = fills.v[0];" in SRC
+    assert "k.col = cut_of(c, g.gw, xcut);" in SRC
+
+
+@pytest.mark.parametrize("drift", [0.4, 1.8])
+@pytest.mark.parametrize("geom", [_geom(11, 7, 16), _geom(7, 5, 128)])
+def test_model_walk_planes_are_walk_positions(geom, drift):
+    """On the rebin's output, whole grid and each row as a band's slab, the
+    cut-tested walk planes equal ``walk_positions``' keyed mask bit for bit,
+    with deferred slots among them."""
+    spec = GridSpec(**geom)
+    planes = _planes(geom["capacity"] + int(10 * drift), geom, 0.8, drift)
+    out, _ = R.rebin_planes_plain([torch.from_numpy(p.copy()) for p in planes], spec)
+    out = [o.numpy() for o in out]
+    wx, wy = model_walk(out, spec)
+    mx, my = R.walk_positions(*(torch.from_numpy(o) for o in out[:2]), spec)
+    np.testing.assert_array_equal(wx.view(np.int32), mx.numpy().view(np.int32))
+    np.testing.assert_array_equal(wy.view(np.int32), my.numpy().view(np.int32))
+    assert ((out[0] < 0.5 * SENTINEL) & (wx == SENTINEL)).any()
+    for r0 in range(spec.gh):
+        bx, by = model_walk([o[r0:r0 + 1] for o in out], spec, r0)
+        np.testing.assert_array_equal(bx, wx[r0:r0 + 1])
+        np.testing.assert_array_equal(by, wy[r0:r0 + 1])
+
+
+@pytest.mark.parametrize("w", [9.0, 5.403036594390869, 0.8290607333183289])
+def test_model_walk_home_test_at_the_cuts(w):
+    """Positions on each cut t_j and the floats around it, on the grid's
+    outer edges, NaN and the infinities: parked exactly where the key (the
+    card's saturating cast, as ``_key`` keys) is not the slot's cell."""
+    gw, gh, C = 9, 6, 8
+    spec = GridSpec(x_min=-7.25, y_min=3.5, cell_size=w, gw=gw, gh=gh, capacity=C)
+    rng = np.random.default_rng(int(w * 1e3))
+    near = lambda t, n: (np.array([t], F32).view(np.int32)
+                         + rng.integers(-2, 3, n).astype(np.int32)).view(F32)
+
+    def coord(lo, n, idx, shape):
+        vals = np.empty(shape, F32)
+        for i in np.ndindex(shape):
+            j = int(idx[i]) + int(rng.integers(-1, 3))
+            k = cut(j, w, n)
+            t = k if not isinstance(k, (bool, np.bool_)) else F32(j * w)
+            vals[i] = F32(lo) + near(t, 1)[0]
+        odd = rng.random(shape) < 0.08
+        vals[odd] = rng.choice(np.array([np.nan, np.inf, -np.inf, 0.0, -1e30, 1e30], F32),
+                               int(odd.sum()))
+        return vals
+
+    shape = (gh, gw, C)
+    x = coord(spec.x_min, gw, np.broadcast_to(np.arange(gw)[None, :, None], shape), shape)
+    y = coord(spec.y_min, gh, np.broadcast_to(np.arange(gh)[:, None, None], shape), shape)
+    x[rng.random(shape) < 0.1] = SENTINEL
+    wx, wy = model_walk([x, y], spec)
+    kx, ky = _key(x - F32(spec.x_min), w, gw), _key(y - F32(spec.y_min), w, gh)
+    home = (kx == np.arange(gw)[None, :, None]) & (ky == np.arange(gh)[:, None, None])
+    defer = (x < 0.5 * SENTINEL) & ~home
+    assert defer.any() and ((x < 0.5 * SENTINEL) & home).any()
+    np.testing.assert_array_equal(wx, np.where(defer, F32(SENTINEL), x))
+    np.testing.assert_array_equal(wy, np.where(defer, F32(SENTINEL), y))

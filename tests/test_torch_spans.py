@@ -25,12 +25,15 @@ from rust_particle_system_tpu_torch.render import RenderSpec
 from rust_particle_system_tpu_torch.runtime import cli, profiling
 
 BOUNDS = (-54.0, 54.0, -36.0, 36.0)  # 13 x 9 cells of 9
-PHASES = ["sph.count", "sph.predict", "sph.rebin", "sph.defer", "sph.density",
-          "sph.pressure", "sph.force"]
+PHASES = ["sph.count", "sph.predict", "sph.rebin", "sph.density", "sph.pressure",
+          "sph.force"]
 # a frame's phases in order: the live count, then the lost count after the
-# rebin, the ids' re-park at the end
-FRAME = ["sph.count", "sph.predict", "sph.rebin", "sph.count", "sph.defer", "sph.density",
+# rebin, the ids' re-park at the end.  The default rebin (variant 6, K1)
+# writes the walk planes itself, so no ``sph.defer``; variant 5 (K9's two
+# passes) takes the defer mask in torch under it.
+FRAME = ["sph.count", "sph.predict", "sph.rebin", "sph.count", "sph.density",
          "sph.pressure", "sph.force", "sph.count"]
+FRAME_V5 = FRAME[:4] + ["sph.defer"] + FRAME[4:]
 
 
 def _state(n=300, capacity=16, seed=0, spec=None):
@@ -94,16 +97,16 @@ def test_span_records_under_a_profile():
     assert [n for n, _ in _spans(prof)] == ["sph.frame"]
 
 
-@pytest.mark.parametrize("variant", [6, 5])
-def test_plane_step_spans(variant):
+@pytest.mark.parametrize("variant, phases", [(6, FRAME), (5, FRAME_V5)])
+def test_plane_step_spans(variant, phases):
     """One ``sph.frame`` a frame, with the phases inside it in the frame's
     order, and the walks' and tail's work under no span of the frame's own
-    but theirs."""
+    but theirs; variant 5 still opens ``sph.defer``, variant 6 does not."""
     ps, spec, params = _state()
     _, spans = _profiled(lambda: R.plane_step(ps, params, spec, variant=variant))
     frames = [e for n, e in spans if n == "sph.frame"]
     assert len(frames) == 1
-    assert _phases(spans) == FRAME
+    assert _phases(spans) == phases
     assert all(_inside(e, "sph.frame") for _, e in spans)
 
 
@@ -162,10 +165,12 @@ def _band_spans(mesh, planes, n, frame):
     params = make_params(bounds=BOUNDS)
     slab = shard_plane_state(ps, mesh)
     step = make_plane_sharded_step(spec, mesh)
+    step_v5 = make_plane_sharded_step(spec, mesh, rebin_variant=5)
     frame_fn = make_plane_sharded_frame(spec, mesh, RenderSpec(width=108, height=72,
                                                                max_radius_px=2), BOUNDS)
     out = {}
     for key, fn in (("step", lambda: step(slab, params)),
+                    ("step_v5", lambda: step_v5(slab, params)),
                     ("frame", lambda: frame_fn(slab, params))):
         _, spans = _profiled(fn)
         out[key] = ([n for n, _ in spans], all(_inside(e, "sph.frame") for _, e in spans))
@@ -176,7 +181,8 @@ def test_sharded_step_spans_on_two_gloo_bands():
     """On a 2-band gloo mesh each rank's frame has the single-device phases,
     the halo exchanges as ``sph.halo`` and the all_reduce as ``sph.reduce``,
     all inside its one ``sph.frame``; the sharded frame adds ``sph.render``
-    with its all_reduce inside."""
+    with its all_reduce inside.  K7 writes the walk planes, so only the
+    variant-5 step opens ``sph.defer``."""
     spec = make_shard_spec(BOUNDS, 9.0, 16, 2)
     ps, _, _ = _state(n=300, spec=spec)
     planes = [getattr(ps, f) for f in ("px", "py", "vx", "vy", "idsf")]
@@ -189,6 +195,10 @@ def test_sharded_step_spans_on_two_gloo_bands():
             assert name in names, name
         assert names.index("sph.halo") > names.index("sph.rebin")
         assert names[-1] == "sph.reduce"
+        assert "sph.defer" not in names
+        names, framed = out["step_v5"]
+        assert framed and names.count("sph.frame") == 1
+        assert names.index("sph.defer") > names.index("sph.rebin")
         names, framed = out["frame"]
         assert framed and names.count("sph.frame") == 1
         assert names.count("sph.reduce") == 2 and "sph.render" in names
