@@ -721,8 +721,8 @@ def main() -> int:
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
         hole_fill_pass, hole_fill_pass_plain, rebin_compact, rebin_compact_plain,
-        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_band_walk,
-        rebin_planes_plain, rebin_planes_walk, retention_merge)
+        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain,
+        rebin_planes_walk, retention_merge)
     from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
@@ -946,7 +946,7 @@ def main() -> int:
                     and torch.equal(cx, cy) and torch.equal(cx, cfull[r0 * sp.gw:(r0 + Rb) * sp.gw]),
                     f"K7 band {b} of {n_bands} ({label}) differs from K1's rows or its plain "
                     "version")
-            xw, cxw, walk = rebin_planes_band_walk(*args7)
+            xw, cxw, walk = rebin_planes_walk(*args7[:4], ghosts=args7[4:])
             require(all(torch.equal(p, q) for p, q in zip(xw, x)) and torch.equal(cxw, cx)
                     and all(torch.equal(w.view(torch.int32), f[rows_b].view(torch.int32))
                             for w, f in zip(walk, full_walk)),

@@ -87,7 +87,6 @@ def _band(mesh, c: dict, seed: int, device: str = "cuda") -> dict:
 
     from harness import cell, spans, spec, trace, window
     from rust_particle_system_tpu_torch.ops.cuda import resident
-    from rust_particle_system_tpu_torch.parallel import plane_sharded
 
     glue = spec.metric("glue_ms", c["bench"])
     port = [re.compile(p) for p in glue.PORT_KERNELS]
@@ -111,19 +110,18 @@ def _band(mesh, c: dict, seed: int, device: str = "cuda") -> dict:
 
         loop_init(self, frame if mesh is None else counted, *rest, **kw)
 
-    def kept_walk(rebinned, *rest, **kw):
-        planes, fpx = walk_and_integrate(rebinned, *rest, **kw)
-        last["npx"], last["fpx"] = rebinned[0], fpx
-        return planes, fpx
+    def kept_walk(rebinned, walk, *rest, **kw):
+        last["npx"], last["fpx"] = rebinned[0], walk[0]
+        return walk_and_integrate(rebinned, walk, *rest, **kw)
 
     trace.read, window.Loop.__init__ = read_with_spans, counted_loop
-    resident.walk_and_integrate = plane_sharded.walk_and_integrate = kept_walk
+    resident.walk_and_integrate = kept_walk
     try:
         out = cell.run(c, seed, 1.0, True,
                        torch.device(device if mesh is None else mesh.device), mesh)
     finally:
         trace.read, window.Loop.__init__ = read, loop_init
-        resident.walk_and_integrate = plane_sharded.walk_and_integrate = walk_and_integrate
+        resident.walk_and_integrate = walk_and_integrate
     out["reading"].received = received
     out["reading"].deferred = _deferred(last)
     last.clear()

@@ -5,7 +5,7 @@ version beside it for CPU tensors; each counts its launches in ``.launches``.
 
     K1  rebin.rebin_planes, rebin.rebin_planes_walk (with the walk planes)
                                             csrc/rebin.cu
-    K7  rebin.rebin_planes_band, rebin.rebin_planes_band_walk
+    K7  rebin.rebin_planes_band, rebin.rebin_planes_walk (given ghost rows)
                                             csrc/rebin.cu (K1's kernel on a band)
     K9  rebin.hole_fill_pass                csrc/rebin_pass.cu (rebin variants 4, 5)
     K12 rebin.rebin_compact                 csrc/rebin_compact.cu (rebin variants 2, 3)

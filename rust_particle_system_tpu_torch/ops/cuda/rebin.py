@@ -9,9 +9,9 @@ of ``rebin_planes``:
   on one band's slab, its ghost rows read where they lie and its rows tested
   in global rows, replaces it as driven by ``_rebin_v6_band``
   (:func:`rebin_planes_band`, for the band-sharded mesh).  Asked for them
-  (:func:`rebin_planes_walk`, :func:`rebin_planes_band_walk`), K1 and K7 also
-  write the walks' position planes, the defer mask of :func:`walk_positions`
-  on their output;
+  (:func:`rebin_planes_walk`, one entry for both), K1 and K7 also write the
+  walks' position planes, the defer mask of :func:`walk_positions` on their
+  output;
 * variants 4 (lossy) and 5 (lossless, bit-identical to 6), the separable
   hole-fill: two passes of kernel K9 (``csrc/rebin_pass.cu``,
   :func:`hole_fill_pass`, JAX ``_make_kernel_v4`` driven by
@@ -518,23 +518,6 @@ def _check_grid(planes, spec: GridSpec) -> None:
         raise ValueError(f"planes {tuple(planes[0].shape)} do not match {spec}")
 
 
-def rebin_planes_walk(planes, spec: GridSpec, fills=None):
-    """:func:`rebin_planes` (variant 6, K1) that also writes the walks'
-    position planes.  Returns ``(planes, counts, (wx, wy))``: (wx, wy) are
-    :func:`walk_positions` of the output x/y, deferred slots parked at
-    SENTINEL, which K1 decides by its key cuts as it writes each slot.
-    Counts its launches in ``rebin_planes.launches`` (K1's).  Runs
-    :func:`rebin_planes_plain` then :func:`walk_positions` for CPU tensors."""
-    _check_grid(planes, spec)
-    fills = _fills(planes, fills)
-    if _lib.dispatch(planes[0]) == "plain":
-        out, counts = rebin_planes_plain(planes, spec, fills)
-        return out, counts, walk_positions(out[0], out[1], spec)
-    out = _rebin_launch(planes, spec, fills, 0, walk=True)
-    rebin_planes.launches += 1
-    return out
-
-
 def rebin_planes_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
     """Kernel K7: :func:`rebin_planes` on one band's ``[R, gw, C]`` slab of the
     grid ``spec``, whose first row is global row ``row0``.
@@ -567,17 +550,29 @@ def _check_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1) -> tupl
     return _fills(planes, fills)
 
 
-def rebin_planes_band_walk(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1):
-    """:func:`rebin_planes_band` (K7) that also writes the walks' position
-    planes of the band's rows: ``(planes, counts, (wx, wy))``, bit-identical
-    to those rows of :func:`rebin_planes_walk` on the whole grid.  Counts its
-    launches in ``rebin_planes_band.launches`` (K7's).  Runs
-    :func:`rebin_planes_band_plain` then :func:`walk_positions` for CPU
-    tensors."""
-    fills = _check_band(planes, spec, fills, row0, lo2, lo1, hi1)
+def rebin_planes_walk(planes, spec: GridSpec, fills=None, row0: int = 0, ghosts=None):
+    """K1 (:func:`rebin_planes`, variant 6) on the whole grid, or with
+    ``ghosts`` = ``(lo2, lo1, hi1)`` K7 (:func:`rebin_planes_band`) on the
+    band's slab whose first row is global row ``row0``, that also writes the
+    walks' position planes.  Returns ``(planes, counts, (wx, wy))``: (wx, wy)
+    are :func:`walk_positions` of the output x/y, deferred slots parked at
+    SENTINEL, which the kernel decides by its key cuts as it writes each
+    slot; a band's are those rows of the whole grid's.  Counts its launches
+    in ``rebin_planes_band.launches`` (K7's) with ``ghosts``, else in
+    ``rebin_planes.launches`` (K1's).  Runs the plain rebin then
+    :func:`walk_positions` for CPU tensors."""
+    if ghosts is None:
+        _check_grid(planes, spec)
+        if row0:
+            raise ValueError(f"row {row0}: the whole grid starts at row 0; a band "
+                             "passes its ghost rows")
+        fills = _fills(planes, fills)
+    else:
+        fills = _check_band(planes, spec, fills, row0, *ghosts)
     if _lib.dispatch(planes[0]) == "plain":
-        out, counts = rebin_planes_band_plain(planes, spec, fills, row0, lo2, lo1, hi1)
+        out, counts = (rebin_planes_plain(planes, spec, fills) if ghosts is None
+                       else rebin_planes_band_plain(planes, spec, fills, row0, *ghosts))
         return out, counts, walk_positions(out[0], out[1], spec, row0)
-    out = _rebin_launch(planes, spec, fills, row0, (lo2, lo1, hi1), walk=True)
-    rebin_planes_band.launches += 1
+    out = _rebin_launch(planes, spec, fills, row0, ghosts, walk=True)
+    (rebin_planes if ghosts is None else rebin_planes_band).launches += 1
     return out

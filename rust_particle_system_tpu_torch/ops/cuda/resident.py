@@ -12,6 +12,10 @@ torch; for 2-4 no defer mask and always the raw walk), ``plane_frame`` (a
 frame plus its image through the plane render K4), ``render_plane_state`` and
 ``to_particle_state``.
 
+A frame's phases are written once, in ``_physics``, on a ``Slab``: the whole
+grid here, or a band's rows on the mesh (``parallel/plane_sharded.py``),
+with the band's rebin and the walks' ghost rows.
+
 The frame counter is a host-side int, so the warm-up gate needs no device read;
 ``lost`` stays a device tensor and is only read back when asked for.
 
@@ -27,6 +31,7 @@ no ``sph.defer``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -44,14 +49,15 @@ ID_EXACT = 1 << 24  # ids below it ride the f32 ``idsf`` channel as their value
 MAX_IDS = (1 << 31) - (1 << 23)  # the id codec's range: ids 0 .. MAX_IDS - 1
 _SIGN_BIT = -(1 << 31)  # 0x80000000 as an int32
 MAX_SPILL = 4096  # overflow rows the init spill places (as JAX's max_spill)
+FILLS = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)  # a dead slot's px, py, vx, vy, idsf
 
 
 @dataclasses.dataclass(frozen=True)
 class PlaneState:
-    """Cell-plane particle state ``[gh, gw, C]``.  Dead slots: px/py = SENTINEL,
-    vx/vy/idsf = 0.  ``n`` is the initial particle count; ``lost`` (int32 device
-    scalar) counts particles dropped at the initial binning, so the live total
-    is always ``n - lost``."""
+    """Cell-plane particle state ``[gh, gw, C]``.  Dead slots hold
+    :data:`FILLS`: px/py = SENTINEL, vx/vy/idsf = 0.  ``n`` is the initial
+    particle count; ``lost`` (int32 device scalar) counts particles dropped at
+    the initial binning, so the live total is always ``n - lost``."""
 
     px: torch.Tensor
     py: torch.Tensor
@@ -170,8 +176,7 @@ def plane_state_from_particles(state: ParticleState, spec: GridSpec,
     grid = build_grid(spec, state.pos, with_table=False)
     idsf = encode_ids(state.ids)
     packed = torch.cat([state.pos, state.vel, idsf[:, None]], dim=-1)[grid.perm.long()]
-    fills = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)
-    cells = cell_planes_aos(packed, grid.starts[a * gw:], (b - a) * gw, C, fills)
+    cells = cell_planes_aos(packed, grid.starts[a * gw:], (b - a) * gw, C, FILLS)
     ch = [cells[..., i].reshape(b - a, gw, C).contiguous() for i in range(5)]
     del cells
     ch, spilled = _spill_init_overflow(ch, packed, grid, spec, a)
@@ -239,67 +244,92 @@ def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
             torch.where(live2, nvx, 0.0), torch.where(live2, nvy, 0.0))
 
 
-def walk_and_integrate(rebinned, spec: GridSpec, params: SimParams, fuse_tail: bool,
-                       row0: int = 0, halo=None, defer: bool = True, walk=None):
-    """The frame after the rebin: the defer mask, the walks (K2 + K3, or K3b
-    and the torch tail with ``fuse_tail=False``; K6 for ``spec.pack2``) and
-    the re-parked ids, on the rebinned channels (px, py, vx, vy, idsf).  On a
-    band's slab, ``row0`` is its first global row and ``halo`` brings the
-    walks' ghost rows (see :mod:`.sph_step`).  ``walk``: the walk planes
-    (wx, wy) where the rebin wrote them (K1, K7), else the defer mask
-    computes them here.  ``defer=False`` (rebin variants 2-4, JAX
-    resident.py:297-300) walks every live slot where it is, through the raw
-    walk and the torch tail whatever ``fuse_tail`` says.  Returns the new
-    (px, py, vx, vy, idsf) planes and the walk x plane (deferred slots
-    parked)."""
-    npx, npy, nvx0, nvy0, nidsf = rebinned
-    fpx, fpy = npx, npy
-    if walk is not None:
-        fpx, fpy = walk
-    elif defer:
-        with span("sph.defer"):
-            fpx, fpy = walk_positions(npx, npy, spec, row0)
-    if fuse_tail and defer:
-        out = _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec, params, halo)
-    else:
-        nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params, halo)
-        with span("sph.tail"):
-            out = _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params)
-    with span("sph.count"):
-        idsf = torch.where(npx < 0.5 * SENTINEL, nidsf, 0.0)
-    return (*out, idsf), fpx
+def walk_and_integrate(rebinned, walk, spec: GridSpec, params: SimParams,
+                       fuse_tail: bool, halo=None):
+    """The walks on the rebinned channels (px, py, vx, vy, ...) and the walk
+    planes ``walk`` = (wx, wy), deferred slots parked: the density walk K2
+    with its pressure terms, then the fused force walk K3, or with
+    ``fuse_tail=False`` the raw walk K3b and the torch tail (K6 for
+    ``spec.pack2``).  ``halo`` brings a band's ghost rows (see
+    :mod:`.sph_step`).  Returns the new (px, py, vx, vy) planes."""
+    npx, npy, nvx0, nvy0 = rebinned[:4]
+    fpx, fpy = walk
+    if fuse_tail:
+        return _forces_from_cells(fpx, fpy, nvx0, nvy0, npx, npy, spec, params, halo)
+    nvx, nvy = _velocities_from_cells(fpx, fpy, nvx0, nvy0, spec, params, halo)
+    with span("sph.tail"):
+        return _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params)
 
 
-def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
-                  fuse_tail: bool = True, variant: int = 6) -> PlaneState:
-    """One live physics frame: gravity + predict, rebin (K1, which also writes
-    the walk planes: the defer mask), density walk with the pressure terms
-    (K2), then the fused force walk with the frame tail (K3), or with
-    ``fuse_tail=False`` the raw force walk (K3b) and the tail in torch (the
-    same math in another order of rounding).
+@dataclasses.dataclass(frozen=True)
+class Slab:
+    """The rows a frame runs on: the whole grid on one card, a band's on the
+    mesh.  ``row0`` is its first global row.  ``rebin(chans, variant)``
+    rebins the predicted channels into ``(planes, counts, walk)``: ``counts``
+    None where the rebin gives none, ``walk`` the walk planes (wx, wy) where
+    the kernel writes them (K1, K7), else None.  ``halo`` brings the walks'
+    ghost rows (see :mod:`.sph_step`), None on one card."""
 
-    The default rebin (variant 6; 5 is bit-identical) is LOSSLESS: movers that
-    find no free slot, and >1-cell/frame movers in transit, stay in their slot
-    and are DEFERRED — parked out of the force walks for the frame (gravity +
-    integrate + bounce only).  Variants 2-4 drop what does not fit (``lost``
-    grows by it), defer nothing and take the raw walk and the torch tail."""
+    row0: int
+    rebin: Callable
+    halo: Callable | None = None
+
+
+def _grid_slab(spec: GridSpec) -> Slab:
+    """The whole grid: K1 with the walk planes for variant 6, else
+    :func:`rebin_planes` of the variant."""
+    def rebin(chans, variant):
+        if variant == 6:
+            return rebin_planes_walk(chans, spec, FILLS)
+        return (*rebin_planes(chans, spec, FILLS, variant), None)
+
+    return Slab(0, rebin)
+
+
+def _physics(ps: PlaneState, params: SimParams, spec: GridSpec, fuse_tail: bool,
+             variant: int, slab: Slab):
+    """One live physics frame on ``slab``'s rows, the phases of the card and
+    of a band alike: the live count, gravity + predict, the slab's rebin, the
+    walk planes, the walks (:func:`walk_and_integrate`), the ids' re-park.
+
+    The lossless rebins (6; 5 is bit-identical) leave movers that find no
+    free slot, and >1-cell/frame movers in transit, in their slot; they are
+    DEFERRED, parked in the walk planes (K1 and K7 write them; for variant 5
+    the mask runs in torch, in global rows), so they take gravity +
+    integrate + bounce only.  Variants 2-4 defer nothing and take the raw
+    walk and the torch tail whatever ``fuse_tail`` says.  Returns the five
+    new planes, the live count before, the rebin's counts and the walk x
+    plane."""
     with span("sph.count"):
         live_before = ps.live.sum(dtype=torch.int32)
     with span("sph.predict"):
         chans = predict_planes(ps, params)
-    walk = None
     with span("sph.rebin"):
-        if variant == 6:
-            rebinned, counts, walk = rebin_planes_walk(chans, spec)
-        else:
-            rebinned, counts = rebin_planes(chans, spec, variant=variant)
+        rebinned, counts, walk = slab.rebin(chans, variant)
     del chans  # four predicted planes, not to be held through the walks
+    lossless = variant in (5, 6)
+    if walk is None and lossless:
+        with span("sph.defer"):
+            walk = walk_positions(rebinned[0], rebinned[1], spec, slab.row0)
+    elif walk is None:
+        walk = rebinned[:2]
+    out = walk_and_integrate(rebinned, walk, spec, params, fuse_tail and lossless, slab.halo)
+    with span("sph.count"):
+        idsf = torch.where(rebinned[0] < 0.5 * SENTINEL, rebinned[4], 0.0)
+    return (*out, idsf), live_before, counts, walk[0]
+
+
+def plane_physics(ps: PlaneState, params: SimParams, spec: GridSpec,
+                  fuse_tail: bool = True, variant: int = 6) -> PlaneState:
+    """One live physics frame (:func:`_physics`) on the whole grid: K1 (the
+    rebin, writing the walk planes), K2, then K3, or with ``fuse_tail=False``
+    K3b and the tail in torch (the same math in another order of rounding).
+    ``lost`` grows by what a lossy rebin (variants 2-4) drops."""
+    planes, live_before, counts, _ = _physics(ps, params, spec, fuse_tail, variant,
+                                              _grid_slab(spec))
     with span("sph.count"):
         lost = ps.lost + (live_before - counts.clamp_max(spec.capacity).sum(dtype=torch.int32))
-    (px2, py2, vx2, vy2, idsf), _ = walk_and_integrate(
-        rebinned, spec, params, fuse_tail, defer=variant in (5, 6), walk=walk)
-    return PlaneState(px=px2, py=py2, vx=vx2, vy=vy2, idsf=idsf, frame=ps.frame,
-                      lost=lost, n=ps.n)
+    return PlaneState(*planes, frame=ps.frame, lost=lost, n=ps.n)
 
 
 def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
@@ -307,7 +337,7 @@ def plane_step(ps: PlaneState, params: SimParams, spec: GridSpec,
     """Warm-up-honouring full frame: physics once ``frame >= shader_delay``.
     ``variant`` is the rebin's (see :func:`plane_physics`); any other than
     2-6 raises ValueError."""
-    with span("sph.frame", ps.frame):
+    with span("sph.frame"):
         return _step(ps, params, spec, fuse_tail, variant)
 
 
@@ -334,7 +364,7 @@ def plane_frame(ps: PlaneState, params: SimParams, spec: GridSpec, render_spec,
     instead of clipped; ``patch_margin`` asks for a wider patch.  Colours are
     the energy ramp (sum rule 1), in warm-up too, as in JAX.  ``fuse_tail``
     and ``variant`` as in :func:`plane_step`."""
-    with span("sph.frame", ps.frame):
+    with span("sph.frame"):
         new = _step(ps, params, spec, fuse_tail, variant)
         with span("sph.render"):
             geometry = render_geometry(

@@ -3,12 +3,13 @@
 Counterpart of ``rust_particle_system_tpu/parallel/plane_sharded.py`` (rebin
 variants 6 and 5).  Each rank owns ``R = gh / n_bands`` rows of cell slots of
 the ``[gh, gw, C]`` planes (:func:`.shard.shard_plane_state`) and runs the
-single-device frame on them with the same kernels: migration between bands
-IS the lossless rebin, which adopts a mover from the neighbour band's edge
-row like any local one (variant 6: K7, K1 on the band's slab with ghost
-rows; variant 5: K9's pass Y with ghost rows, the adoption returned to the
-owner band, then pass X, band-local), and the walks (K2/K3/K3b, or K6) read
-the neighbour bands' edge rows as ghost rows.
+single-device frame's phases on them (``resident._physics`` on the band's
+``Slab``, which brings the band's rebin and the walks' ghost rows) with the
+same kernels: migration between bands IS the lossless rebin, which adopts a
+mover from the neighbour band's edge row like any local one (variant 6: K7,
+K1 on the band's slab with ghost rows; variant 5: K9's pass Y with ghost
+rows, the adoption returned to the owner band, then pass X, band-local), and
+the walks (K2/K3/K3b, or K6) read the neighbour bands' edge rows as ghost rows.
 
 Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
 ``all_reduce``):
@@ -36,20 +37,17 @@ elementwise glue runs the same operations.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
-from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, rebin_planes_band_walk,
-                               retention_merge)
-from ..ops.cuda.resident import PlaneState, predict_planes, walk_and_integrate
+from ..ops.cuda.rebin import SENTINEL, hole_fill_pass, rebin_planes_walk, retention_merge
+from ..ops.cuda.resident import FILLS, PlaneState, Slab, _physics
 from ..render.splat import splat_resolve
 from ..render.splat_planes import MARGIN, accumulators, raster_planes, render_geometry
 from ..runtime.profiling import span
 from .halo import edge_rows, exchange_halo, halo_rows, rebin_halo
 from .mesh import BandMesh
 
-FILLS = (SENTINEL, SENTINEL, 0.0, 0.0, 0.0)  # predx, predy, vx, vy, idsf
 DIAGS = ("live_before", "live_after", "deferred")
 
 
@@ -77,32 +75,6 @@ def _rebin_v5_band(chans, spec, row0: int, mesh: BandMesh) -> list:
     out, _, adopted = hole_fill_pass(mid, spec, FILLS, 1, False, True, None, row0)
     out = retention_merge(mid, out, adopted, spec, 1, False, row0)
     return [o.reshape(R, gw, C) for o in out]
-
-
-def _local_plane_physics(ps: PlaneState, params, spec, mesh: BandMesh,
-                         fuse_tail: bool, rebin_variant: int):
-    """One physics frame on this rank's ``[R, gw, C]`` slab.  Returns the new
-    slab state and the diagnostics' per-band int32 counts."""
-    R = ps.px.shape[0]
-    row0 = mesh.rank * R
-    with span("sph.count"):
-        live_before = ps.live.sum(dtype=torch.int32)
-    with span("sph.predict"):
-        chans = predict_planes(ps, params)
-    walk = None
-    with span("sph.rebin"):
-        if rebin_variant == 5:
-            rebinned = _rebin_v5_band(chans, spec, row0, mesh)
-        else:
-            rebinned, _, walk = rebin_planes_band_walk(chans, spec, FILLS, row0,
-                                                       *rebin_halo(chans, FILLS, mesh))
-    planes, fpx = walk_and_integrate(rebinned, spec, params, fuse_tail, row0,
-                                     functools.partial(halo_rows, mesh=mesh), walk=walk)
-    with span("sph.count"):
-        live = planes[0] < 0.5 * SENTINEL
-        deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)
-        counts = torch.stack([live_before, live.sum(dtype=torch.int32), deferred])
-    return PlaneState(*planes, frame=ps.frame, lost=ps.lost, n=ps.n), counts
 
 
 def check_plane_diags(diags: torch.Tensor, expect_particles: int | None = None) -> dict:
@@ -138,7 +110,7 @@ def make_plane_sharded_step(spec, mesh: BandMesh, rebin_variant: int = 6,
     local = _band_step(spec, mesh, rebin_variant, fuse_tail)
 
     def step(ps: PlaneState, params):
-        with span("sph.frame", ps.frame):
+        with span("sph.frame"):
             return local(ps, params)
 
     return step
@@ -152,11 +124,26 @@ def _band_step(spec, mesh: BandMesh, rebin_variant: int, fuse_tail: bool):
     if spec.gh % mesh.size:
         raise ValueError(f"gh={spec.gh} must divide by {mesh.size} bands; build the "
                          f"grid with parallel.shard.make_shard_spec")
+    row0 = mesh.rank * (spec.gh // mesh.size)
+
+    # The exchanges are looked up when the frame runs, so a swapped
+    # ``rebin_halo`` or ``halo_rows`` of this module takes effect.
+    def rebin(chans, variant):
+        if variant == 5:
+            return _rebin_v5_band(chans, spec, row0, mesh), None, None
+        return rebin_planes_walk(chans, spec, FILLS, row0, rebin_halo(chans, FILLS, mesh))
+
+    slab = Slab(row0, rebin, lambda planes, fills: halo_rows(planes, fills, mesh))
 
     def local(ps: PlaneState, params):
         if ps.frame >= params.shader_delay:
-            new, counts = _local_plane_physics(ps, params, spec, mesh, fuse_tail,
-                                               rebin_variant)
+            planes, live_before, _, fpx = _physics(ps, params, spec, fuse_tail,
+                                                   rebin_variant, slab)
+            new = PlaneState(*planes, frame=ps.frame, lost=ps.lost, n=ps.n)
+            with span("sph.count"):
+                live = planes[0] < 0.5 * SENTINEL
+                deferred = (live & ~(fpx < 0.5 * SENTINEL)).sum(dtype=torch.int32)
+                counts = torch.stack([live_before, live.sum(dtype=torch.int32), deferred])
         else:
             with span("sph.count"):
                 new, live = ps, ps.live.sum(dtype=torch.int32)
@@ -183,7 +170,7 @@ def make_plane_sharded_frame(spec, mesh: BandMesh, render_spec, bounds_static,
     rows = slice(mesh.rank * R, (mesh.rank + 1) * R)
 
     def frame(ps: PlaneState, params):
-        with span("sph.frame", ps.frame):
+        with span("sph.frame"):
             new, diags = step(ps, params)
             with span("sph.render"):
                 full = []

@@ -52,6 +52,7 @@ from ..core.params import make_params
 from ..core.state import make_state
 from ..models.base import model_device
 from ..ops.cuda.fast_forces import BPAD, SENT, check_deg, evaluate, moments
+from ..ops.cuda.rebin import walk_positions
 from ..ops.cuda.resident import plane_state_from_particles, walk_and_integrate
 from ..ops.cuda.toolchain_probe import require_fp32_matmul
 from ..ops.grid import GridSpec
@@ -270,11 +271,13 @@ def time_inputs(device, deg: int = 12, n: int = 1_000_000, seed: int = 0):
 
 
 def production_walks_ms(spec, ps, reps: int = 20) -> float:
-    """The exact production walks on the same planes: the defer mask, K2, the
-    pressure terms and K3 with its frame tail (``walk_and_integrate``)."""
+    """The exact production walks on the same planes: K2, the pressure terms
+    and K3 with its frame tail (``walk_and_integrate``), handed the walk
+    planes as K1 writes them (``walk_positions``, outside the timing)."""
     params = make_params(bounds=TIME_BOUNDS, smoothing_radius=H)
-    planes = (ps.px, ps.py, ps.vx, ps.vy, ps.idsf)
-    return cuda_ms(lambda: walk_and_integrate(planes, spec, params, True), reps)
+    planes = (ps.px, ps.py, ps.vx, ps.vy)
+    walk = walk_positions(ps.px, ps.py, spec)
+    return cuda_ms(lambda: walk_and_integrate(planes, walk, spec, params, True), reps)
 
 
 def time_forces(inputs, deg: int = 12, reps: int = 20) -> dict:

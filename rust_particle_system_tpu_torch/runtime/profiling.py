@@ -56,16 +56,15 @@ class _NoSpan:
 _NO_SPAN = _NoSpan()
 
 
-def span(name: str, frame: int | None = None):
+def span(name: str):
     """A context manager around one phase of the program (``sph.predict``,
     ``sph.rebin``, ...).  While a ``torch.profiler`` profile records (as under
     :func:`trace`), it is ``record_function(name)``, on the profiler's clock
-    with the CUDA rows it launches, ``frame`` as its argument where given;
-    otherwise the one shared no-op, so the frame pays no allocation, no
-    dispatcher call and no device work for it."""
+    with the CUDA rows it launches; otherwise the one shared no-op, so the
+    frame pays no allocation, no dispatcher call and no device work for it."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
-    return record_function(name, None if frame is None else str(frame))
+    return record_function(name)
 
 
 def device_ms(fn, reps: int) -> float:

@@ -13,6 +13,7 @@ and atol 2.5e-2 on the sharded frame's image (:208-209).  Conservation is
 exact.  Each world has a deadline (WORLD_S): a hang fails its test.
 """
 
+import dataclasses
 import multiprocessing
 import sys
 import time
@@ -22,7 +23,9 @@ import pytest
 import torch
 
 from rust_particle_system_tpu_torch.core.params import make_params
+from rust_particle_system_tpu_torch.core.state import scatter_init
 from rust_particle_system_tpu_torch.ops.cuda import resident as R
+from rust_particle_system_tpu_torch.ops.cuda.rebin import SENTINEL, rebin_planes, walk_positions
 from rust_particle_system_tpu_torch.ops.grid import GridSpec
 from rust_particle_system_tpu_torch.parallel import (check_plane_diags, gather_plane_state,
                                                     make_plane_sharded_frame,
@@ -57,7 +60,7 @@ def _drive(mesh, planes, frame, n, spec, params, frames, fuse_tail=True, render=
     whole = gather_plane_state(slab, mesh)
     if mesh.rank:
         return {"diags": diags}
-    return {"diags": diags, "frame": whole.frame,
+    return {"diags": diags, "frame": whole.frame, "lost": int(whole.lost),
             "planes": [getattr(whole, f).numpy() for f in CHANNELS],
             "image": None if image is None else image.numpy()}
 
@@ -240,6 +243,36 @@ def test_sharded_step_crowded_boundary_v5():
     """The same at rebin variant 5: the mover's adoption is refused in band 0's
     pass Y, so no acceptance returns and band 1 retains it; then delivered."""
     test_sharded_step_crowded_boundary_defers_then_delivers(rebin_variant=5)
+
+
+@pytest.mark.parametrize("rebin_variant", [6, 5])
+def test_one_band_step_is_plane_step(rebin_variant):
+    """One band of a gloo mesh runs the card's frame: the same phases on the
+    band's slab (K7's plain version or K9's passes with the adoption
+    exchange, the walks with fill rows for ghost rows) give ``plane_step``'s
+    planes and ``lost`` bit for bit after two frames, and each frame's
+    diagnostics are its live counts and the slots the defer mask parks in
+    ``walk_positions`` of the whole grid's rebin."""
+    spec = GridSpec(**_spec())
+    params = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
+    gen = torch.Generator().manual_seed(7)
+    state = scatter_init(gen, 300, BOUNDS, y_std_frac=0.06)
+    state = dataclasses.replace(state, vel=torch.randn(state.vel.shape, generator=gen) * 40.0)
+    ps = R.plane_state_from_particles(state, spec)
+    out = _world(1, [getattr(ps, f).numpy() for f in CHANNELS], ps.frame, ps.n, spec,
+                 params, 2, True, None, ps.n, rebin_variant)
+    want, live = [], lambda x: x < 0.5 * SENTINEL
+    for _ in range(2):
+        rebinned, _ = rebin_planes(R.predict_planes(ps, params), spec, variant=rebin_variant)
+        wx, _ = walk_positions(rebinned[0], rebinned[1], spec)
+        new = R.plane_step(ps, params, spec, variant=rebin_variant)
+        want.append({"live_before": int(ps.live.sum()), "live_after": int(new.live.sum()),
+                     "deferred": int((live(rebinned[0]) & ~live(wx)).sum())})
+        ps = new
+    assert out["diags"] == want and sum(d["deferred"] for d in want) > 0
+    assert out["frame"] == ps.frame and out["lost"] == int(ps.lost)
+    for f, got in zip(CHANNELS, out["planes"]):
+        assert np.array_equal(got.view(np.int32), getattr(ps, f).numpy().view(np.int32)), f
 
 
 def test_sharded_frame_image_matches_single_device(rng):

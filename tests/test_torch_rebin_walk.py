@@ -1,20 +1,21 @@
 """The rebin that writes the walks' position planes (K1 and K7 with the defer
 mask in their stores).
 
-``rebin_planes_walk`` and ``rebin_planes_band_walk`` return the rebin's
-planes and counts and, beside them, the walk planes: ``walk_positions`` of
+``rebin_planes_walk`` (K1 on the whole grid, K7 on a band's slab given its
+ghost rows) returns the rebin's planes and counts and, beside them, the walk
+planes: ``walk_positions`` of
 the rebinned x/y, every deferred slot (live, keyed to another cell than the
 one it sits in) parked at SENTINEL.  The kernel decides "deferred" by its
 block's key cuts as it writes each slot, so the planes must equal the torch
 mask of its own output bit for bit, and asking for them must leave the
 rebin's planes and counts as they were.
 
-On the CPU the wrappers run the plain rebin followed by ``walk_positions``:
+On the CPU the entry runs the plain rebin followed by ``walk_positions``:
 held here on the whole grid and on band slabs with ghost rows, at C 16 and
 128, on states built to hold deferred slots (crowded cells whose movers find
-no hole and are retained, movers of more than one cell), and through
-``walk_and_integrate``, which must give the same frame whether it is handed
-the walk planes or computes them.  On a card, K1's and K7's walk planes are
+no hole and are retained, movers of more than one cell), and through the
+frame's core ``resident._physics``, which must give the same frame whether
+the rebin hands it the walk planes or it computes them.  On a card, K1's and K7's walk planes are
 held to ``walk_positions`` of K1's output over C 16/128/1024 and uniform,
 crowded and sparse planes; those cases skip without a card.  This module
 imports only the port, so on the card it runs with
@@ -127,8 +128,8 @@ def test_band_wrapper_is_those_rows_of_the_whole_grid(capacity, kind):
     assert _deferred(whole[0], whole_walk[0]) > 0
     for r0, Rb in _bands(spec.gh):
         slab = [p[r0:r0 + Rb].contiguous() for p in chans]
-        out, counts, walk = R.rebin_planes_band_walk(slab, spec, FILLS, r0,
-                                                     *_ghosts(chans, r0, Rb, spec.gh))
+        out, counts, walk = R.rebin_planes_walk(slab, spec, FILLS, r0,
+                                                _ghosts(chans, r0, Rb, spec.gh))
         rows = slice(r0, r0 + Rb)
         assert all(_bit_equal(a, b[rows]) for a, b in zip(out, whole)), (r0, Rb)
         assert torch.equal(counts, whole_counts[r0 * spec.gw:(r0 + Rb) * spec.gw])
@@ -145,24 +146,34 @@ def test_walk_wrappers_check_their_inputs():
     slab = [p[:3] for p in chans]
     lo2, lo1, hi1 = _ghosts(chans, 0, 3, spec.gh)
     with pytest.raises(ValueError):
-        R.rebin_planes_band_walk(slab, spec, FILLS, spec.gh - 2, lo2, lo1, hi1)
+        R.rebin_planes_walk(chans, spec, FILLS, 1)
     with pytest.raises(ValueError):
-        R.rebin_planes_band_walk(slab, spec, FILLS, 0, lo1, lo1, hi1)
+        R.rebin_planes_walk(slab, spec, FILLS, spec.gh - 2, (lo2, lo1, hi1))
+    with pytest.raises(ValueError):
+        R.rebin_planes_walk(slab, spec, FILLS, 0, (lo1, lo1, hi1))
 
 
 @pytest.mark.parametrize("fuse_tail", [True, False])
 @pytest.mark.parametrize("capacity", [16, 128])
 def test_walk_and_integrate_takes_the_walk_planes(capacity, fuse_tail):
-    """Handed the rebin's walk planes, ``walk_and_integrate`` gives the frame
-    (every plane and the walk x plane) it gives computing the mask itself."""
+    """The frame's core on the whole grid, its walks handed K1's walk
+    planes, gives the frame (every plane, the live count, the counts and the
+    walk x plane) it gives on a slab whose rebin returns K1's planes alone,
+    the walk planes then computed by ``walk_positions``."""
     spec, chans = _planes(capacity, "uniform", seed=capacity + 2)
     params = make_params(bounds=GEOMS[capacity], gravity=300.0)
-    out, _, walk = R.rebin_planes_walk(chans, spec)
-    assert _deferred(out[0], walk[0]) > 0
-    got, got_fpx = resident.walk_and_integrate(out, spec, params, fuse_tail, walk=walk)
-    want, want_fpx = resident.walk_and_integrate(out, spec, params, fuse_tail)
+    ps = resident.PlaneState(*chans, frame=params.shader_delay,
+                             lost=torch.zeros((), dtype=torch.int32),
+                             n=int((chans[0] < 0.5 * SENTINEL).sum()))
+    masked = resident.Slab(0, lambda c, variant: (*R.rebin_planes(c, spec), None))
+    got = resident._physics(ps, params, spec, fuse_tail, 6, resident._grid_slab(spec))
+    want = resident._physics(ps, params, spec, fuse_tail, 6, masked)
+    (got_planes, got_live, got_counts, got_fpx) = got
+    (want_planes, want_live, want_counts, want_fpx) = want
+    assert _deferred(got_planes[0], got_fpx) > 0
     assert _bit_equal(got_fpx, want_fpx)
-    assert all(_bit_equal(a, b) for a, b in zip(got, want))
+    assert all(_bit_equal(a, b) for a, b in zip(got_planes, want_planes))
+    assert torch.equal(got_live, want_live) and torch.equal(got_counts, want_counts)
 
 
 def test_frame_with_the_folded_mask_is_variant_5s():
@@ -221,7 +232,7 @@ def test_band_kernel_walk_planes_are_k1s_rows(card, capacity, kind):
     for r0, Rb in _bands(spec.gh):
         slab = [p[r0:r0 + Rb].contiguous() for p in chans]
         ghosts = _ghosts(chans, r0, Rb, spec.gh)
-        out, counts, walk = R.rebin_planes_band_walk(slab, spec, FILLS, r0, *ghosts)
+        out, counts, walk = R.rebin_planes_walk(slab, spec, FILLS, r0, ghosts)
         base, base_counts = R.rebin_planes_band(slab, spec, FILLS, r0, *ghosts)
         mx, my = walk_positions(out[0], out[1], spec, r0)
         torch.cuda.synchronize()

@@ -27,13 +27,13 @@ from rust_particle_system_tpu_torch.runtime import cli, profiling
 BOUNDS = (-54.0, 54.0, -36.0, 36.0)  # 13 x 9 cells of 9
 PHASES = ["sph.count", "sph.predict", "sph.rebin", "sph.density", "sph.pressure",
           "sph.force"]
-# a frame's phases in order: the live count, then the lost count after the
-# rebin, the ids' re-park at the end.  The default rebin (variant 6, K1)
-# writes the walk planes itself, so no ``sph.defer``; variant 5 (K9's two
-# passes) takes the defer mask in torch under it.
-FRAME = ["sph.count", "sph.predict", "sph.rebin", "sph.count", "sph.density",
-         "sph.pressure", "sph.force", "sph.count"]
-FRAME_V5 = FRAME[:4] + ["sph.defer"] + FRAME[4:]
+# a frame's phases in order: the live count, then after the walks the ids'
+# re-park and the lost count.  The default rebin (variant 6, K1) writes the
+# walk planes itself, so no ``sph.defer``; variant 5 (K9's two passes) takes
+# the defer mask in torch under it, straight after the rebin.
+FRAME = ["sph.count", "sph.predict", "sph.rebin", "sph.density", "sph.pressure",
+         "sph.force", "sph.count"]
+FRAME_V5 = FRAME[:3] + ["sph.defer"] + FRAME[3:]
 
 
 def _state(n=300, capacity=16, seed=0, spec=None):
@@ -75,7 +75,7 @@ def _profiled(fn):
 def test_span_is_the_shared_no_op_without_a_profiler():
     """No profile records: every span is one shared object that does
     nothing, and records nothing even where a profile is on by then."""
-    off = profiling.span("sph.frame", 3)
+    off = profiling.span("sph.frame")
     assert off is profiling.span("sph.count")
     with off as got:
         assert got is None
@@ -86,14 +86,14 @@ def test_span_is_the_shared_no_op_without_a_profiler():
 
 
 def test_span_records_under_a_profile():
-    """Under a profile, a span is a range named as given; the frame number
-    rides as its argument."""
+    """Under a profile, a span is a range named as given, with no
+    argument."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        rf = profiling.span("sph.frame", 12)
+        rf = profiling.span("sph.frame")
         with rf:
             torch.ones(4).sum()
     assert rf is not profiling.span("sph.frame")
-    assert rf.args == "12"
+    assert rf.name == "sph.frame" and rf.args is None
     assert [n for n, _ in _spans(prof)] == ["sph.frame"]
 
 
@@ -121,9 +121,8 @@ def test_lossy_variant_has_no_defer_span():
     ``sph.defer``, and the raw walk's torch tail."""
     ps, spec, params = _state()
     _, spans = _profiled(lambda: R.plane_step(ps, params, spec, variant=3))
-    assert _phases(spans) == ["sph.count", "sph.predict", "sph.rebin", "sph.count",
-                              "sph.density", "sph.pressure", "sph.force", "sph.tail",
-                              "sph.count"]
+    assert _phases(spans) == ["sph.count", "sph.predict", "sph.rebin", "sph.density",
+                              "sph.pressure", "sph.force", "sph.tail", "sph.count"]
 
 
 def test_warm_up_frame_is_one_empty_span():
