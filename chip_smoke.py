@@ -23,11 +23,15 @@ line each:
      K1 asked for the walks' position planes on each of those states: its
      planes and counts unchanged, its walk planes walk_positions of its
      output bit for bit, and K1 with and without them timed in turns;
+     K1 handed the raw state and the predict (it predicts at load) bit-equal
+     to predict_planes followed by K1 on each of those states and at the
+     16M shape, where the two are timed in turns beside the torch predict;
      K7 on each of 4 bands of the 1M state on the grid padded to 124 rows
      (with live rows past the grid's edges, which it must not read, with air
      rows across a band boundary, and 8 bands of one row on a small grid)
      bit-equal to K1's rows and to its plain version, its walk planes to
-     K1's rows of them; K9 (the hole-fill
+     K1's rows of them, and predicting its own rows at load bit-equal to K7
+     on the predicted slab; K9 (the hole-fill
      passes of rebin variants 4 and 5) in each of its four modes, each whole
      variant, and variant 5 against K1, bit-equal on the same states, and in
      band mode on the 4 x 31 rows; K12 (variants 2 and 3) bit-equal, also
@@ -721,8 +725,8 @@ def main() -> int:
         cell_planes_aos, cell_planes_aos_plain)
     from rust_particle_system_tpu_torch.ops.cuda.rebin import (
         hole_fill_pass, hole_fill_pass_plain, rebin_compact, rebin_compact_plain,
-        rebin_planes, rebin_planes_band, rebin_planes_band_plain, rebin_planes_plain,
-        rebin_planes_walk, retention_merge)
+        predict_channels, rebin_planes, rebin_planes_band, rebin_planes_band_plain,
+        rebin_planes_plain, rebin_planes_walk, retention_merge)
     from rust_particle_system_tpu_torch.models import MODEL_FAMILIES
     from rust_particle_system_tpu_torch.models.nbody import make_nbody_params
     from rust_particle_system_tpu_torch.ops.cuda.nbody import nbody_accel, nbody_accel_plain
@@ -919,6 +923,51 @@ def main() -> int:
           f"without the walk planes, ms a call: events {ms4['events']}, kernel by the profiler "
           f"{ms4['profiler']} [{card}]")
 
+    # K1 handed the state's raw planes and the predict, as the frame hands
+    # them (rebin_tile<true>): its planes, counts and walk planes bit-equal to
+    # predict_planes followed by K1 (rebin_tile<false>), on the 1M stepped
+    # state and on each state above taken as a raw state.
+    predict = R.predict_args(params)
+    same_walk = lambda a, b: (all(torch.equal(bits(x), bits(y)) for x, y in zip(a[0], b[0]))
+                              and torch.equal(a[1], b[1])
+                              and all(torch.equal(bits(x), bits(y)) for x, y in zip(a[2], b[2])))
+    for label, (pl, sp) in {"1M stepped": (R.planes_of(ps), spec), "air rows": (air, spec),
+                            **tile_grids}.items():
+        require(same_walk(rebin_planes_walk(pl, sp, predict=predict),
+                          rebin_planes_walk(predict_channels(pl, predict), sp)),
+                f"K1 predicting at load differs from predict_planes + K1 ({label})")
+    # At the 16M shape of the benchmark's one-card cells (854 x 481 cells,
+    # C=128, uniform at rest, 3 frames in): K1 alone unfolded (on the
+    # predicted planes) against folded (on the state's planes), in turns,
+    # the profiler's kernel time, beside the torch predict the fold removes.
+    b16 = (-3840.0, 3840.0, -2160.0, 2160.0)
+    spec16 = GridSpec.from_bounds(b16, 9.0, 128)
+    p16 = make_params(bounds=b16, gravity=300.0, shader_delay=0)
+    gen16 = torch.Generator(device="cuda").manual_seed(16)
+    lo16 = torch.tensor([b16[0], b16[2]], device="cuda")
+    hi16 = torch.tensor([b16[1], b16[3]], device="cuda")
+    ps16 = R.plane_state_from_particles(
+        port.make_state(lo16 + torch.rand((16_000_000, 2), generator=gen16, device="cuda")
+                        * (hi16 - lo16)), spec16)
+    for _ in range(3):
+        ps16 = R.plane_step(ps16, p16, spec16)
+    raw16, pred16 = R.planes_of(ps16), R.predict_args(p16)
+    rin16 = R.predict_planes(ps16, p16)
+    require(same_walk(rebin_planes_walk(raw16, spec16, predict=pred16),
+                      rebin_planes_walk(rin16, spec16)),
+            "K1 predicting at load differs from predict_planes + K1 (16M)")
+    k1_unfolded = lambda: rebin_planes_walk(rin16, spec16)
+    k1_folded = lambda: rebin_planes_walk(raw16, spec16, predict=pred16)
+    fold_turns = {"unfolded": [], "folded": []}
+    for key, f in (("unfolded", k1_unfolded), ("folded", k1_folded), ("folded", k1_folded),
+                   ("unfolded", k1_unfolded)):
+        fold_turns[key].append(round(device_ms(f, 20), 4))
+    fold_turns["predict_planes"] = [round(device_ms(lambda: R.predict_planes(ps16, p16), 20), 4)]
+    del ps16, raw16, rin16
+    print("phase 2: K1 predicting at load bit-equal to predict_planes + K1 (1M stepped, air "
+          "rows, tile edges, 16M); at 16M, ms a call by the profiler, K1 unfolded / folded / "
+          f"folded / unfolded and the torch predict: {json.dumps(fold_turns)} [{card}]")
+
     # K7: the 1M state on the grid padded to 4 bands (gh 121 -> 124, 31 rows
     # each), a few frames in; each band's K7 (ghost rows from the neighbour
     # bands, zeros past the grid's edges) against K1's rows of the whole grid
@@ -973,6 +1022,28 @@ def main() -> int:
     for drift in (0.4, 0.9, 1.8):
         check_k7(f"R=1, drift {drift}", demo_planes(torch, small8, 0.7, drift, seed=80,
                                                     device="cuda"), small8, 8, past=1.5)
+    # K7 handed a band's raw rows and the predict, its ghost rows those of
+    # the predicted planes (as the band path predicts its edge rows): bit-equal
+    # to K7 on the predicted slab, on every band.
+    def check_k7_fold(label, raw, sp, n_bands, prm):
+        pred = predict_channels(raw, prm)
+        Rb = sp.gh // n_bands
+        row = lambda c, r: pred[c][r] if 0 <= r < sp.gh else torch.full_like(pred[c][0],
+                                                                                fills[c])
+        for b in range(n_bands):
+            r0 = b * Rb
+            ghosts = ([row(c, r0 - 2) for c in (0, 1)], [row(c, r0 - 1) for c in range(5)],
+                      [row(c, r0 + Rb) for c in range(5)])
+            require(same_walk(
+                rebin_planes_walk([p[r0:r0 + Rb] for p in raw], sp, fills, r0, ghosts, prm),
+                rebin_planes_walk([p[r0:r0 + Rb] for p in pred], sp, fills, r0, ghosts)),
+                f"K7 band {b} of {n_bands} ({label}) predicting at load differs from "
+                "predict_planes + K7")
+
+    check_k7_fold("1M stepped", R.planes_of(ps7), spec7, 4, predict)
+    for drift in (0.4, 1.8):
+        check_k7_fold(f"R=1, drift {drift}", demo_planes(torch, small8, 0.7, drift, seed=81,
+                                                         device="cuda"), small8, 8, predict)
     args7, out7, cnt7 = k7_calls[1]  # an inner band
     k7_dev = device_ms(lambda: rebin_planes_band(*args7), 10)
     record("K7", "K7 band rebin (31 of 124 rows)", "rust_particle_system_tpu_torch/csrc/rebin.cu",
@@ -982,7 +1053,8 @@ def main() -> int:
            nbytes(*args7[0], *args7[4], *args7[5], *args7[6], *out7, cnt7), 0)
     print("phase 2: K7 bit-equal to K1's rows and to its plain version (1M on 4 x 31 rows, "
           "with live rows past the edges, air rows across a band boundary, 8 bands x 1 row x "
-          "drift 0.4/0.9/1.8), its walk planes K1's rows of them; an inner band "
+          "drift 0.4/0.9/1.8), its walk planes K1's rows of them, and predicting its own "
+          "rows at load (1M on 4 x 31 rows, 8 x 1 row); an inner band "
           f"{rows['K7']['ms']:.4f} ms a call by events, its kernel {k7_dev:.4f} ms by the "
           f"profiler [{card}]")
 
@@ -2599,6 +2671,7 @@ def main() -> int:
             "ms_per_frame_1m_by_variant": step_ms, "ms_image_1080p": splat_ms,
             "ms_per_frame_backends": step_ms_backends, "grid_frames_s": grid_s,
             "k11_overflow_phase2": k11_over, "k14_err_over_scale": fm_errs,
+            "k1_fold_16m_ms": fold_turns,
             "k14dF_max_abs": c128_err, "host_us_per_call": host},
             indent=1))
     print(json.dumps(result))

@@ -13,6 +13,9 @@ after 300, 1M uniform pair-packed C=64 after 5.  The parts:
 
   full         the kernel as it is; its planes and counts must equal the
                port's K1 (``rebin_planes``) bit for bit, or the script fails;
+  full, predicted at load  the same library handed the state's raw planes
+               and the predict (``rebin_tile<true>``, as the frame calls it);
+               it too must equal the port's K1 on the predicted planes;
   tile_cols/2  half the tile's columns (the geometry's alternative);
   phase_y      phase Y alone (phase X not run);
   y_pass1      phase Y's first pass alone (the ranks and words of pass 2 not
@@ -59,13 +62,13 @@ def _cut(src: str, old: str, new: str) -> str:
 
 def parts(src: str) -> dict:
     """The kernel's source and its cut-down copies, by name."""
-    y = _cut(src, "if (c < g.gw) column_x(", "if (c < 0) column_x(")
+    y = _cut(src, "if (c < g.gw) column_x<", "if (c < 0) column_x<")
     pass2 = "  __syncwarp();\n\n  // Pass 2: hole h"
     y1 = _cut(y, pass2, pass2.replace("\n\n", "\n  if (C > 0) return;\n"))
     no_loads = _cut(y1, "  Fetched next = fetch(lane);",
-                    "  Fetched next{x0 == nullptr ? 0.0f : 1.0f, 2.0f, kDead, 4.0f, 5.0f, 6.0f, "
-                    "7.0f, 8.0f};")
-    no_loads = _cut(no_loads, "if (q + 1 < nchunk) next = fetch(s + 32);", "next.y += 1.0f;")
+                    "  Fetched next{{xs[0] == nullptr ? 0.0f : 1.0f, kDead, 5.0f, 7.0f}, "
+                    "{2.0f, 4.0f, 6.0f, 8.0f}};")
+    no_loads = _cut(no_loads, "if (q + 1 < nchunk) next = fetch(s + 32);", "next.y[0] += 1.0f;")
     cols = src[src.index("constexpr int tile_cols(int C) { return "):]
     cols = cols[:cols.index(";")]
     num = cols.split("clamp_int(")[1].split(" / C")[0]
@@ -158,21 +161,25 @@ def main() -> int:
                             entry)
     record = struct.Struct(_lib.RECORDS[entry] + "0P")
 
-    def launch(fn, planes, spec):
+    def launch(fn, planes, spec, predict=None):
+        """One launch on ``planes``; K1 with ``predict`` = (dt, gdt) takes
+        them as the raw state and predicts at load."""
         k, (rows, gw, C) = len(planes), planes[0].shape
         out = [torch.empty_like(planes[0]) for _ in range(k)]
         counts = torch.empty(rows * gw, dtype=torch.int32, device=planes[0].device)
         fills = tuple(1e6 if c < 2 else 0.0 for c in range(k))
         ins = _lib.pad8([p.data_ptr() for p in planes])
         outs = _lib.pad8([o.data_ptr() for o in out])
-        geometry = (spec.x_min, spec.y_min, spec.cell_width, spec.cell_size,
-                    torch.cuda.current_stream().cuda_stream)
+        geometry = (spec.x_min, spec.y_min, spec.cell_width, spec.cell_size)
+        stream = torch.cuda.current_stream().cuda_stream
         if args.k12:
-            fields = (*ins, *outs, counts.data_ptr(), *_lib.pad8(fills), k, spec.gh, gw, C)
-        else:
-            fields = (*ins, *(0,) * 18, *outs, counts.data_ptr(), *_lib.pad8(fills), k, spec.gh,
-                      gw, C, 0, rows)
-        code = fn(record.pack(*fields, *geometry), record.size)
+            fields = (*ins, *outs, counts.data_ptr(), *_lib.pad8(fills), k, spec.gh, gw, C,
+                      *geometry, stream)
+        else:  # no ghost rows, no walk planes
+            fields = (*ins, *(0,) * 18, *outs, 0, 0, counts.data_ptr(), *_lib.pad8(fills), k,
+                      spec.gh, gw, C, 0, rows, int(predict is not None), *geometry,
+                      *(predict or (0.0, 0.0)), stream)
+        code = fn(record.pack(*fields), record.size)
         if code:
             raise RuntimeError(f"{entry}: CUDA error {code}")
         return out, counts
@@ -184,31 +191,34 @@ def main() -> int:
                              frame=p1.shader_delay)
     for _ in range(5):
         st = R.plane_step(st, p1, spec)
-    states["1M uniform C=128"] = (R.predict_planes(st, p1), spec)
+    states["1M uniform C=128"] = (st, p1, spec)
     sim = Simulation(SPHFluid.create(n=50_000))
     sim.update_params(gravity=400.0)
     sim.run(300)
-    states["50k scene after frame 300"] = (R.predict_planes(sim.state, sim.params),
-                                           sim.model.grid)
+    states["50k scene after frame 300"] = (sim.state, sim.params, sim.model.grid)
     if not args.k12:  # K12 serves variants 2 and 3, which no pair-packed path takes
         spec2 = GridSpec.from_bounds(BOUNDS, 9.0, 64, pack2=True)
         p2 = make_params(bounds=BOUNDS, gravity=300.0, shader_delay=0)
         st2 = uniform_plane_state(torch, spec2, N_1M, seed=8)
         for _ in range(5):
             st2 = R.plane_step(st2, p2, spec2)
-        states["1M uniform pack2 C=64"] = (R.predict_planes(st2, p2), spec2)
+        states["1M uniform pack2 C=64"] = (st2, p2, spec2)
 
     result = {"card": card, "ptxas": resources}
-    for label, (planes, sp) in states.items():
+    for label, (ps, prm, sp) in states.items():
+        planes, raw, predict = R.predict_planes(ps, prm), R.planes_of(ps), R.predict_args(prm)
+        calls = {name: (fn, planes, None) for name, fn in libs.items()}
+        if not args.k12:
+            calls["full, predicted at load"] = (libs["full"], raw, predict)
         want, wc = port(planes, sp)
-        for name in exact:
-            got, gc = launch(libs[name], planes, sp)
+        for name in (*exact, *calls.keys() - libs.keys()):
+            got, gc = launch(*calls[name][:2], sp, calls[name][2])
             if not (all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(gc, wc)):
                 raise SystemExit(f"profile_rebin: {name} differs from the port's kernel on "
                                  f"{label}")
-        result[label] = {name: statistics.median(device_ms(lambda: launch(fn, planes, sp), 50)
-                                                 for _ in range(3))
-                         for name, fn in libs.items()}
+        result[label] = {name: statistics.median(
+            device_ms(lambda: launch(fn, pl, sp, pr), 50) for _ in range(3))
+            for name, (fn, pl, pr) in calls.items()}
     text = json.dumps(result, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -78,6 +78,21 @@
 // and the block's cuts of row r and of column c, so "key == (r, c)" is four
 // compares, and the defer mask needs no pass of its own.  Rows and columns are
 // global, so K7 writes a band's rows of K1's walk planes.
+//
+// The predict at load (rebin_tile<true>): the launch is handed the state's own
+// planes (px, py, vx, vy, ids) and applies gravity and the predict to every
+// value it loads of an own row (predict() below), so the frame writes no
+// predicted planes; a band's ghost rows come predicted, and are taken as
+// given.  Every decision and every stored value then sees what the predicted
+// planes would hold, so the output is the composition's bit for bit.  Phase
+// Y loads a row's vx and vy only where its x shows a live slot (a dead slot
+// predicts to SENTINEL whatever its velocity), phase X reads the same five
+// channels, and the rare r+-1 arrival four values in place of two.  Loading
+// the velocities beside x/y for every slot, and so ahead of time, took 153
+// registers a thread and ran 2.2x slower (PERF.md, section 6).
+// rebin_tile<false> reads its input as given.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -89,6 +104,7 @@ using rps::OutPlanes;
 
 constexpr int kTileWarps = 8;                 // warps a block
 constexpr int kTileThreads = 32 * kTileWarps;  // threads a block
+constexpr int kTileBlocks = 4;                 // blocks an SM the registers allow
 constexpr int kMaxC = 1024;                   // the largest C the rebin takes
 constexpr int kBallots = 5;  // ballots a chunk keeps for a column's second pass
 
@@ -113,6 +129,8 @@ struct Geom {
   int k, gh, gw, C;
   int row0, rows;  // own global rows [row0, row0 + rows)
   float x_min, y_min, cell_w, cell_h;
+  float dt, gdt;  // the predict's step and gravity * dt (rebin_tile<true>)
+  __device__ __forceinline__ bool own(int rr) const { return rr >= row0 && rr < row0 + rows; }
 };
 
 // The input planes: the own rows, and the ghost rows of a band (null for K1,
@@ -137,6 +155,30 @@ __device__ __forceinline__ const float* xy_row(const Src& s, const Geom& g, int 
 }
 
 constexpr float kDead = rps::kSentinel;  // x of a slot that is not read
+
+// Gravity and the predict (compute_shader.wgsl:397-405) of one raw slot, as
+// the frame's plain predict_planes rounds them, op by op and never fused: a
+// live slot (px < 0.5 * SENTINEL) takes vy - g dt and moves to (px + vx dt,
+// py + (vy - g dt) dt); a dead one parks at SENTINEL.  The rebin then tests
+// the predicted x for liveness, as it tests a predicted plane.
+__device__ __forceinline__ void predict(const Geom& g, float& x, float& y, float vx, float vy) {
+  const bool live = x < rps::kLiveBelow;
+  const float vyp = __fsub_rn(vy, g.gdt);
+  x = live ? __fadd_rn(x, __fmul_rn(vx, g.dt)) : rps::kSentinel;
+  y = live ? __fadd_rn(y, __fmul_rn(vyp, g.dt)) : rps::kSentinel;
+}
+
+// x/y of slot `at` of row rr (global, row0 - 1 <= rr <= row0 + rows) as the
+// rebin sees them: predicted from the row's four channels where kPredict and
+// rr is an own row, else as they lie.
+template <bool kPredict>
+__device__ __forceinline__ void load_xy(const Src& s, const Geom& g, int rr, size_t at, float& x,
+                                        float& y) {
+  x = __ldg(row_of(s, g, 0, rr) + at);
+  y = __ldg(row_of(s, g, 1, rr) + at);
+  if (kPredict && g.own(rr))
+    predict(g, x, y, __ldg(row_of(s, g, 2, rr) + at), __ldg(row_of(s, g, 3, rr) + at));
+}
 
 // A read-only load that stays where it is written: the compiler would sink a
 // load into the branch of the live test that uses it, so that a chunk's rows
@@ -204,9 +246,15 @@ struct WalkPlanes {
   float* y;
 };
 
-// x/y of one slot in the four rows phase Y reads.
+// Phase Y's rows of a column, by index: r, r-1, r+1, r-2.
+constexpr int kRows = 4;
+__host__ __device__ constexpr int row_delta(int i) {
+  return i == 0 ? 0 : i == 1 ? -1 : i == 2 ? 1 : -2;
+}
+
+// x/y of one slot in the four rows phase Y reads, as loaded.
 struct Fetched {
-  float x, y, xm, ym, xp, yp, xm2, ym2;
+  float x[kRows], y[kRows];
 };
 
 // Source codes: input slot `slot` of row r + dr, column c + dc, for an own
@@ -232,6 +280,7 @@ __device__ __forceinline__ int nth_set(const unsigned* bal, int n) {
 // Phase Y for column c of row r, by one warp: mid[s], the pass-X word of
 // each mid slot.  ky_up: ky >= r - 1; k: the row's and this column's cuts.
 // bal: the warp's scratch, kBallots words per chunk.
+template <bool kPredict>
 __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, int c,
                                          const Cut& ky_up, Cuts k, const float* xcut, int* mid,
                                          unsigned* bal) {
@@ -241,37 +290,43 @@ __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, i
   k.col = cut_of(c, g.gw, xcut);
   k.right = cut_of(c + 1, g.gw, xcut + 1);
   const size_t col = static_cast<size_t>(c) * C;
-  const float* x0 = xy_row(src, g, 0, r) + col;
-  const float* y0 = xy_row(src, g, 1, r) + col;
-  const float* xu = has_up ? xy_row(src, g, 0, r - 1) + col : nullptr;
-  const float* yu = has_up ? xy_row(src, g, 1, r - 1) + col : nullptr;
-  const float* xd = has_dn ? xy_row(src, g, 0, r + 1) + col : nullptr;
-  const float* yd = has_dn ? xy_row(src, g, 1, r + 1) + col : nullptr;
-  const float* xu2 = has_up2 ? xy_row(src, g, 0, r - 2) + col : nullptr;
-  const float* yu2 = has_up2 ? xy_row(src, g, 1, r - 2) + col : nullptr;
+  // Each row's x/y at this column (null where the row is not read), and
+  // whether it is predicted at load: an own row, when kPredict.  An own row's
+  // vx and vy lie at fixed byte distances from its x (the planes' own), so
+  // they need no pointers of their own.
+  const bool has[kRows] = {true, has_up, has_dn, has_up2};
+  const float* xs[kRows];
+  const float* ys[kRows];
+  bool pred[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int rr = r + row_delta(i);
+    xs[i] = has[i] ? xy_row(src, g, 0, rr) + col : nullptr;
+    ys[i] = has[i] ? xy_row(src, g, 1, rr) + col : nullptr;
+    pred[i] = kPredict && has[i] && g.own(rr);
+  }
+  const uintptr_t x_at = reinterpret_cast<uintptr_t>(src.own[0]);
+  const uintptr_t to_vx = reinterpret_cast<uintptr_t>(src.own[2]) - x_at;
+  const uintptr_t to_vy = reinterpret_cast<uintptr_t>(src.own[3]) - x_at;
+  const auto at = [](const float* p, uintptr_t d) {
+    return reinterpret_cast<const float*>(reinterpret_cast<uintptr_t>(p) + d);
+  };
 
   // Pass 1: predicates, their ballots and totals; each own slot's word.
   // 0 keep_m1 (row r-1's slot moves here), 1 keep_p1 (row r+1's), 2 dead,
   // 3 into_m1 (moves to row r-1), 4 into_p1, 5 row r-2's slot moves to row
   // r-1, 6 dead in row r-1, 7 dead in row r+1.
   int tot[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  // x/y of rows r, r-1, r+1, r-2 at slot s (a dead x where not read).
+  // x/y of the four rows at slot s, as they lie (a dead x where not read).
   const auto fetch = [&](int s) {
-    Fetched v{kDead, 0.0f, kDead, 0.0f, kDead, 0.0f, kDead, 0.0f};
-    if (s < C) {
-      v.x = load_now(x0 + s);
-      v.y = load_now(y0 + s);
-      if (has_up) {
-        v.xm = load_now(xu + s);
-        v.ym = load_now(yu + s);
-      }
-      if (has_dn) {
-        v.xp = load_now(xd + s);
-        v.yp = load_now(yd + s);
-      }
-      if (has_up2) {
-        v.xm2 = load_now(xu2 + s);
-        v.ym2 = load_now(yu2 + s);
+    Fetched v;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      v.x[i] = kDead;
+      v.y[i] = 0.0f;
+      if (s < C && xs[i]) {
+        v.x[i] = load_now(xs[i] + s);
+        v.y[i] = load_now(ys[i] + s);
       }
     }
     return v;
@@ -281,20 +336,36 @@ __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, i
   for (int q = 0; q < nchunk; ++q) {
     const int s = q * 32 + lane;
     const bool act = s < C;
-    const Fetched v = next;
+    Fetched v = next;
     if (q + 1 < nchunk) next = fetch(s + 32);
-    const bool live0 = v.x < kLiveBelow;
-    const float a0 = v.y - g.y_min;
+    if (kPredict) {  // the velocities of the live slots of predicted rows, then the predict
+      float vx[kRows], vy[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        vx[i] = vy[i] = 0.0f;
+        if (pred[i] && v.x[i] < kLiveBelow) {
+          vx[i] = load_now(at(xs[i] + s, to_vx));
+          vy[i] = load_now(at(xs[i] + s, to_vy));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if (pred[i]) predict(g, v.x[i], v.y[i], vx[i], vy[i]);
+    }
+    const float x = v.x[0], y = v.y[0], xm = v.x[1], ym = v.y[1], xp = v.x[2], yp = v.y[2],
+                xm2 = v.x[3], ym2 = v.y[3];
+    const bool live0 = x < kLiveBelow;
+    const float a0 = y - g.y_min;
     const bool p[8] = {
-        v.xm < kLiveBelow && k.row.at(v.ym - g.y_min),      // ky >= r
-        v.xp < kLiveBelow && !k.below.at(v.yp - g.y_min),   // ky <= r
+        xm < kLiveBelow && k.row.at(ym - g.y_min),      // ky >= r
+        xp < kLiveBelow && !k.below.at(yp - g.y_min),   // ky <= r
         act && !live0,
-        live0 && has_up && !k.row.at(a0),                   // ky <= r - 1
-        live0 && has_dn && k.below.at(a0),                  // ky >= r + 1
-        v.xm2 < kLiveBelow && ky_up.at(v.ym2 - g.y_min),    // ky >= r - 1
-        has_up && act && !(v.xm < kLiveBelow),
-        has_dn && act && !(v.xp < kLiveBelow)};
-    if (act) mid[s] = live0 ? source(0, 0, s) << 2 | k.cls(v.x, v.y) : -1;
+        live0 && has_up && !k.row.at(a0),               // ky <= r - 1
+        live0 && has_dn && k.below.at(a0),              // ky >= r + 1
+        xm2 < kLiveBelow && ky_up.at(ym2 - g.y_min),    // ky >= r - 1
+        has_up && act && !(xm < kLiveBelow),
+        has_dn && act && !(xp < kLiveBelow)};
+    if (act) mid[s] = live0 ? source(0, 0, s) << 2 | k.cls(x, y) : -1;
 #pragma unroll
     for (int f = 0; f < 8; ++f) {
       const unsigned b = __ballot_sync(0xffffffffu, p[f]);
@@ -324,9 +395,9 @@ __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, i
     if (dead && hrank < n_arr) {
       const bool from_up = hrank < n_up;
       const int w = from_up ? nth_set(bal, hrank) : nth_set(bal + 1, hrank - n_up);
-      const int rr = from_up ? r - 1 : r + 1;
-      const float x = __ldg(xy_row(src, g, 0, rr) + col + w);
-      mid[s] = source(from_up ? -1 : 1, 0, w) << 2 | k.cls(x, __ldg(xy_row(src, g, 1, rr) + col + w));
+      float x, y;
+      load_xy<kPredict>(src, g, from_up ? r - 1 : r + 1, col + w, x, y);
+      mid[s] = source(from_up ? -1 : 1, 0, w) << 2 | k.cls(x, y);
     } else if (adopted) {
       mid[s] = -1;
     }
@@ -336,8 +407,10 @@ __device__ __forceinline__ void column_y(const Src& src, const Geom& g, int r, i
 
 // Phase X for own column c of row r, by one warp, on the shared words of
 // columns c-2..c+1 (mid + d * C is column c + d): the composed sources, the
-// gather, the walk planes and the cell's count.  k: the row's cuts; xcut:
-// this column's.
+// gather (predicted at load where kPredict and the source row is an own
+// row), the walk planes and the cell's count.  k: the row's cuts; xcut: this
+// column's.
+template <bool kPredict>
 __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
                                          const WalkPlanes& walk, int* __restrict__ counts,
                                          const rps::Fills& fills, const Geom& g, int r, int c,
@@ -413,6 +486,13 @@ __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
     const size_t from = static_cast<size_t>(c + dc) * C + (cd & 1023);
     float v[rps::kMaxChannels];
     for_channels(g.k, [&](int ch) { v[ch] = __ldg(row_of(src, g, ch, r + dr) + from); });
+    // A composed source is live after the predict (phase Y classed it so),
+    // so live before it: the live branch of predict(), the velocity kept.
+    if (kPredict && g.own(r + dr)) {
+      v[3] = __fsub_rn(v[3], g.gdt);
+      v[0] = __fadd_rn(v[0], __fmul_rn(v[2], g.dt));
+      v[1] = __fadd_rn(v[1], __fmul_rn(v[3], g.dt));
+    }
     for_channels(g.k, [&](int ch) { out.p[ch][o] = v[ch]; });
     if (walk.x) {
       const bool defer = v[0] < kLiveBelow && !k.home(v[0], v[1]);
@@ -425,11 +505,14 @@ __device__ __forceinline__ void column_x(const Src& src, const OutPlanes& out,
 }
 
 // Block (x, y): own columns [x T, x T + T) (those inside the grid) of own
-// row row0 + y, T = tile_cols(C) - 3.
-__global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes out,
-                                                           WalkPlanes walk,
-                                                           int* __restrict__ counts,
-                                                           rps::Fills fills, Geom g) {
+// row row0 + y, T = tile_cols(C) - 3.  kPredict: the own rows are the raw
+// state, predicted at load.  Four blocks an SM: the predict at load would
+// take 80 registers a thread and three blocks; held to 64 it spills a few
+// words and runs faster (PERF.md, section 6).
+template <bool kPredict>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    rebin_tile(Src src, OutPlanes out, WalkPlanes walk, int* __restrict__ counts,
+               rps::Fills fills, Geom g) {
   extern __shared__ int smem[];
   const int C = g.C, ncols = tile_cols(C), T = ncols - 3;
   int* mid = smem;  // [ncols][C]: tile column j is grid column c0 - 2 + j
@@ -455,13 +538,14 @@ __global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes ou
 
   for (int j = warp; j < ncols; j += kTileWarps) {
     const int c = c0 - 2 + j;
-    if (c >= 0 && c < g.gw) column_y(src, g, r, c, ky_up, k, cuts + j, mid + j * C, bal);
+    if (c >= 0 && c < g.gw) column_y<kPredict>(src, g, r, c, ky_up, k, cuts + j, mid + j * C,
+                                                bal);
   }
   __syncthreads();
   for (int j = 2 + warp; j < 2 + T; j += kTileWarps) {
     const int c = c0 - 2 + j;
-    if (c < g.gw) column_x(src, out, walk, counts, fills, g, r, c, k, cuts + j, mid + j * C,
-                           bal);
+    if (c < g.gw) column_x<kPredict>(src, out, walk, counts, fills, g, r, c, k, cuts + j,
+                                     mid + j * C, bal);
   }
 }
 
@@ -474,7 +558,9 @@ __global__ void __launch_bounds__(kTileThreads) rebin_tile(Src src, OutPlanes ou
 // C] planes; walk: the walks' x/y planes, [rows, gw, C] each, or both null;
 // counts: [rows*gw] i32.  gh is the whole grid's height; the
 // launch owns global rows [row0, row0 + rows).  fills[0] must be >= 0.5 *
-// SENTINEL (a filled slot is dead); the wrapper checks it.
+// SENTINEL (a filled slot is dead); the wrapper checks it.  predict: 1 if own
+// holds the raw (px, py, vx, vy, ...) channels, to be predicted at load with
+// dt and gdt = gravity * dt (k >= 4; the ghost rows come predicted), else 0.
 struct rps_rebin_args {
   const float* own[8];
   const float* lo2[2];
@@ -484,8 +570,8 @@ struct rps_rebin_args {
   float* walk[2];
   int* counts;
   float fills[8];
-  int k, gh, gw, C, row0, rows;
-  float x_min, y_min, cell_w, cell_h;
+  int k, gh, gw, C, row0, rows, predict;
+  float x_min, y_min, cell_w, cell_h, dt, gdt;
   void* stream;
 };
 
@@ -494,6 +580,7 @@ extern "C" int rps_rebin(const void* packed, int size) {
   if (!rps::unpack(packed, size, &a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.k < 2 || a.k > rps::kMaxChannels || a.C < 1 || a.C > kMaxC || a.rows < 1 ||
       a.row0 < 0 || a.row0 + a.rows > a.gh || a.gw < 1 || !a.walk[0] != !a.walk[1] ||
+      (a.predict != 0 && (a.predict != 1 || a.k < 4)) ||
       static_cast<long long>(a.gh) * a.gw >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Src src{};
@@ -508,17 +595,19 @@ extern "C" int rps_rebin(const void* packed, int size) {
   }
   src.lo2[0] = a.lo2[0];
   src.lo2[1] = a.lo2[1];
-  const Geom g{a.k, a.gh, a.gw, a.C, a.row0, a.rows, a.x_min, a.y_min, a.cell_w, a.cell_h};
+  const Geom g{a.k,      a.gh,     a.gw,     a.C,      a.row0, a.rows,
+               a.x_min,  a.y_min,  a.cell_w, a.cell_h, a.dt,   a.gdt};
   const int T = tile_cols(a.C) - 3;
   const size_t shmem = tile_shmem(a.C);
+  const auto kernel = a.predict ? rebin_tile<true> : rebin_tile<false>;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rebin_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((a.gw + T - 1) / T, a.rows);
   const WalkPlanes walk{a.walk[0], a.walk[1]};
-  rebin_tile<<<grid, kTileThreads, shmem, static_cast<cudaStream_t>(a.stream)>>>(
-      src, out, walk, a.counts, fills, g);
+  kernel<<<grid, kTileThreads, shmem, static_cast<cudaStream_t>(a.stream)>>>(src, out, walk,
+                                                                           a.counts, fills, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; each counts its launches in ``.launches``.
 
-    K1  rebin.rebin_planes, rebin.rebin_planes_walk (with the walk planes)
+    K1  rebin.rebin_planes, rebin.rebin_planes_walk (with the walk planes; given
+        ``predict``, on the raw state, predicted at load)
                                             csrc/rebin.cu
     K7  rebin.rebin_planes_band, rebin.rebin_planes_walk (given ghost rows)
                                             csrc/rebin.cu (K1's kernel on a band)

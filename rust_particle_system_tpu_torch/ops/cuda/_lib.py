@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # One converted argument per call, and pointers stay 64 bits.
 RECORDS = {
     "rps_plane_build": "PPP8f3iP",
-    "rps_rebin": "8P2P8P8P8P2PP8f6i4fP",
+    "rps_rebin": "8P2P8P8P8P2PP8f7i6fP",
     "rps_hole_fill_pass": "8P8P8P8PPP8f9i4fP",
     "rps_rebin_compact": "8P8PP8f4i4fP",
     "rps_density": "4P5i3fP",

@@ -11,7 +11,8 @@ of ``rebin_planes``:
   (:func:`rebin_planes_band`, for the band-sharded mesh).  Asked for them
   (:func:`rebin_planes_walk`, one entry for both), K1 and K7 also write the
   walks' position planes, the defer mask of :func:`walk_positions` on their
-  output;
+  output; handed the state's raw planes and ``predict``, they apply gravity
+  and the predict (:func:`predict_channels`) to each value as they load it;
 * variants 4 (lossy) and 5 (lossless, bit-identical to 6), the separable
   hole-fill: two passes of kernel K9 (``csrc/rebin_pass.cu``,
   :func:`hole_fill_pass`, JAX ``_make_kernel_v4`` driven by
@@ -338,6 +339,21 @@ def rebin_compact_plain(planes, spec: GridSpec, fills):
     return outs, keep.sum(-1, dtype=torch.int32)
 
 
+def predict_channels(planes, predict) -> list:
+    """Gravity + predict (compute_shader.wgsl:397-405) of the raw channels
+    (px, py, vx, vy, ...) with ``predict = (dt, gdt)``, gdt the float32
+    gravity * dt: the rebin's input channels [pred x, pred y, vx, vy, ...],
+    dead slots parked, the channels after vy as they are."""
+    dt, gdt = predict
+    px, py, vx, vy = planes[:4]
+    live = px < 0.5 * SENTINEL
+    vxp = torch.where(live, vx, 0.0)
+    vyp = torch.where(live, vy - gdt, 0.0)
+    predx = torch.where(live, px + vxp * dt, SENTINEL)
+    predy = torch.where(live, py + vyp * dt, SENTINEL)
+    return [predx, predy, vxp, vyp, *planes[4:]]
+
+
 def walk_positions(npx, npy, spec: GridSpec, row0: int = 0):
     """The walks' position planes: DEFERRED slots (live, but resident in another
     cell than their key) are parked at SENTINEL (resident.py:264-273).  The
@@ -362,12 +378,13 @@ def _ptrs(tensors) -> tuple:
 
 
 def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None,
-                  walk: bool = False):
+                  walk: bool = False, predict=None):
     """Launch the rebin kernel on the ``[rows, gw, C]`` planes of global rows
     [row0, row0 + rows); ``ghosts``: K7's ghost rows ``(lo2, lo1, hi1)``, each
     a ``[gw, C]`` row (None for K1 on the whole grid, whose ghost rows lie
-    outside it).  Returns (planes, counts), and with ``walk`` the walk planes
-    (wx, wy) as a third item."""
+    outside it); ``predict``: ``(dt, gdt)`` to predict the planes at load
+    (``rebin_tile<true>``), None to read them as given.  Returns (planes,
+    counts), and with ``walk`` the walk planes (wx, wy) as a third item."""
     k = len(planes)
     if not 2 <= k <= 8:
         raise ValueError("the rebin kernel takes 2..8 channels")
@@ -386,9 +403,10 @@ def _rebin_launch(planes, spec: GridSpec, fills: tuple, row0: int, ghosts=None,
     wxy = _lib.empty_f32(2, planes[0].shape, planes[0]) if walk else None
     walk_ptrs = (wxy[0].data_ptr(), wxy[1].data_ptr()) if walk else (0, 0)
     counts = torch.empty(rows * gw, dtype=torch.int32, device=planes[0].device)
+    dt, gdt = (0.0, 0.0) if predict is None else predict
     _rebin_kernel(*_ptrs(planes), *ghost_ptrs, *_ptrs(out), *walk_ptrs, counts.data_ptr(),
-                  *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, spec.x_min,
-                  spec.y_min, spec.cell_width, spec.cell_size)
+                  *_lib.pad8(fills), k, spec.gh, gw, C, row0, rows, int(predict is not None),
+                  spec.x_min, spec.y_min, spec.cell_width, spec.cell_size, dt, gdt)
     return (out, counts, tuple(wxy)) if walk else (out, counts)
 
 
@@ -550,17 +568,27 @@ def _check_band(planes, spec: GridSpec, fills, row0: int, lo2, lo1, hi1) -> tupl
     return _fills(planes, fills)
 
 
-def rebin_planes_walk(planes, spec: GridSpec, fills=None, row0: int = 0, ghosts=None):
+def rebin_planes_walk(planes, spec: GridSpec, fills=None, row0: int = 0, ghosts=None,
+                      predict=None):
     """K1 (:func:`rebin_planes`, variant 6) on the whole grid, or with
     ``ghosts`` = ``(lo2, lo1, hi1)`` K7 (:func:`rebin_planes_band`) on the
     band's slab whose first row is global row ``row0``, that also writes the
     walks' position planes.  Returns ``(planes, counts, (wx, wy))``: (wx, wy)
     are :func:`walk_positions` of the output x/y, deferred slots parked at
     SENTINEL, which the kernel decides by its key cuts as it writes each
-    slot; a band's are those rows of the whole grid's.  Counts its launches
-    in ``rebin_planes_band.launches`` (K7's) with ``ghosts``, else in
-    ``rebin_planes.launches`` (K1's).  Runs the plain rebin then
-    :func:`walk_positions` for CPU tensors."""
+    slot; a band's are those rows of the whole grid's.
+
+    ``predict`` = ``(dt, gdt)``: ``planes`` are the state's raw (px, py, vx,
+    vy, ...) channels, and the kernel applies :func:`predict_channels` to
+    each value of them it loads, rounded as the plain version rounds, so the
+    output is that of the predicted channels bit for bit; the ghost rows come
+    predicted.  None (the default): ``planes`` are the rebin's input as they
+    are.  Counts its launches in ``rebin_planes_band.launches`` (K7's) with
+    ``ghosts``, else in ``rebin_planes.launches`` (K1's).  Runs
+    :func:`predict_channels`, the plain rebin then :func:`walk_positions` for
+    CPU tensors."""
+    if predict is not None and len(planes) < 4:
+        raise ValueError("the predict at load reads px, py, vx and vy: 4 channels or more")
     if ghosts is None:
         _check_grid(planes, spec)
         if row0:
@@ -570,9 +598,11 @@ def rebin_planes_walk(planes, spec: GridSpec, fills=None, row0: int = 0, ghosts=
     else:
         fills = _check_band(planes, spec, fills, row0, *ghosts)
     if _lib.dispatch(planes[0]) == "plain":
+        if predict is not None:
+            planes = predict_channels(planes, predict)
         out, counts = (rebin_planes_plain(planes, spec, fills) if ghosts is None
                        else rebin_planes_band_plain(planes, spec, fills, row0, *ghosts))
         return out, counts, walk_positions(out[0], out[1], spec, row0)
-    out = _rebin_launch(planes, spec, fills, row0, ghosts, walk=True)
+    out = _rebin_launch(planes, spec, fills, row0, ghosts, walk=True, predict=predict)
     (rebin_planes if ghosts is None else rebin_planes_band).launches += 1
     return out

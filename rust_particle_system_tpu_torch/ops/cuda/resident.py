@@ -3,9 +3,11 @@
 Counterpart of ``rust_particle_system_tpu/ops/pallas/resident.py`` for the
 single-chip main path: ``plane_state_from_particles`` (one sort, the plane build
 K5, the overflow spill), ``plane_physics`` / ``plane_step`` (gravity + predict,
-the rebin of the chosen ``variant``: the lossless K1 by default, which also
-writes the walks' position planes (the defer mask), two K9 passes for 4 and 5,
-K12 for 2 and 3; for 5 the defer mask in torch; for 5 and 6 the density walk K2
+the rebin of the chosen ``variant``: the lossless K1 by default, which reads
+the state's planes and predicts them at load, and also writes the walks'
+position planes (the defer mask); for the others the predict in torch, then
+two K9 passes for 4 and 5, K12 for 2 and 3; for 5 the defer mask in torch;
+for 5 and 6 the density walk K2
 with the pressure terms in its epilogue, the fused force walk K3 with the
 frame tail, or with ``fuse_tail=False`` the raw walk K3b and the tail in
 torch; for 2-4 no defer mask and always the raw walk), ``plane_frame`` (a
@@ -24,8 +26,9 @@ Each frame is one ``sph.frame`` span, its phases spans inside it
 ``sph.rebin``, ``sph.defer``, ``sph.density``, ``sph.pressure``, ``sph.force``,
 ``sph.tail``, ``sph.render``), so a profile of the frame splits its device
 time by phase; with no profiler recording each is one shared no-op.  The
-default rebin writes the walk planes under ``sph.rebin``, so its frames have
-no ``sph.defer``.
+default rebin predicts at load and writes the walk planes under
+``sph.rebin``, so its frames have no ``sph.predict`` row on one card and no
+``sph.defer``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from ...render.splat_planes import WHITE, drifted_patch_margin, raster_planes, r
 from ...runtime.profiling import span
 from ..grid import GridSpec, build_grid
 from .plane_build import cell_planes_aos
-from .rebin import SENTINEL, check_variant, rebin_planes, rebin_planes_walk, walk_positions
+from .rebin import (SENTINEL, check_variant, predict_channels, rebin_planes, rebin_planes_walk,
+                    walk_positions)
 from .sph_step import _forces_from_cells, _velocities_from_cells
 
 ID_EXACT = 1 << 24  # ids below it ride the f32 ``idsf`` channel as their value
@@ -214,16 +218,21 @@ def to_particle_state(ps: PlaneState, params: SimParams | None = None
     return ParticleState(pos=pos, vel=vel, color=color, frame=ps.frame, ids=ids_out)
 
 
+def planes_of(ps: PlaneState) -> list:
+    """The state's five planes [px, py, vx, vy, idsf]."""
+    return [ps.px, ps.py, ps.vx, ps.vy, ps.idsf]
+
+
+def predict_args(params: SimParams) -> tuple:
+    """(dt, gdt) of the predict: the step and the float32 gravity * dt."""
+    return params.dt, f32_mul(params.gravity, params.dt)
+
+
 def predict_planes(ps: PlaneState, params: SimParams) -> list:
-    """Gravity + predict (compute_shader.wgsl:397-405): the rebin's input
-    channels [pred x, pred y, vx, vy, idsf], dead slots parked."""
-    dt = params.dt
-    live = ps.live
-    vxp = torch.where(live, ps.vx, 0.0)
-    vyp = torch.where(live, ps.vy - f32_mul(params.gravity, dt), 0.0)
-    predx = torch.where(live, ps.px + vxp * dt, SENTINEL)
-    predy = torch.where(live, ps.py + vyp * dt, SENTINEL)
-    return [predx, predy, vxp, vyp, ps.idsf]
+    """Gravity + predict (compute_shader.wgsl:397-405), the plain version of
+    what K1/K7 apply at load: the rebin's input channels [pred x, pred y, vx,
+    vy, idsf], dead slots parked."""
+    return predict_channels(planes_of(ps), predict_args(params))
 
 
 def _unfused_tail(fpx, npx, npy, nvx0, nvy0, nvx, nvy, params: SimParams):
@@ -264,11 +273,14 @@ def walk_and_integrate(rebinned, walk, spec: GridSpec, params: SimParams,
 @dataclasses.dataclass(frozen=True)
 class Slab:
     """The rows a frame runs on: the whole grid on one card, a band's on the
-    mesh.  ``row0`` is its first global row.  ``rebin(chans, variant)``
-    rebins the predicted channels into ``(planes, counts, walk)``: ``counts``
-    None where the rebin gives none, ``walk`` the walk planes (wx, wy) where
-    the kernel writes them (K1, K7), else None.  ``halo`` brings the walks'
-    ghost rows (see :mod:`.sph_step`), None on one card."""
+    mesh.  ``row0`` is its first global row.  ``rebin(chans, variant,
+    predict)`` rebins into ``(planes, counts, walk)``: ``chans`` are the
+    state's raw planes with ``predict`` = (dt, gdt) for the kernel to
+    predict at load (variant 6: K1, K7), else the predicted channels with
+    ``predict`` None; ``counts`` None where the rebin gives none, ``walk``
+    the walk planes (wx, wy) where the kernel writes them (K1, K7), else
+    None.  ``halo`` brings the walks' ghost rows (see :mod:`.sph_step`),
+    None on one card."""
 
     row0: int
     rebin: Callable
@@ -276,11 +288,11 @@ class Slab:
 
 
 def _grid_slab(spec: GridSpec) -> Slab:
-    """The whole grid: K1 with the walk planes for variant 6, else
-    :func:`rebin_planes` of the variant."""
-    def rebin(chans, variant):
+    """The whole grid: K1 with the predict at load and the walk planes for
+    variant 6, else :func:`rebin_planes` of the variant."""
+    def rebin(chans, variant, predict):
         if variant == 6:
-            return rebin_planes_walk(chans, spec, FILLS)
+            return rebin_planes_walk(chans, spec, FILLS, predict=predict)
         return (*rebin_planes(chans, spec, FILLS, variant), None)
 
     return Slab(0, rebin)
@@ -291,6 +303,8 @@ def _physics(ps: PlaneState, params: SimParams, spec: GridSpec, fuse_tail: bool,
     """One live physics frame on ``slab``'s rows, the phases of the card and
     of a band alike: the live count, gravity + predict, the slab's rebin, the
     walk planes, the walks (:func:`walk_and_integrate`), the ids' re-park.
+    Variant 6 hands the rebin the state's planes and the predict (K1 and K7
+    predict at load); the others predict in torch first.
 
     The lossless rebins (6; 5 is bit-identical) leave movers that find no
     free slot, and >1-cell/frame movers in transit, in their slot; they are
@@ -302,11 +316,14 @@ def _physics(ps: PlaneState, params: SimParams, spec: GridSpec, fuse_tail: bool,
     plane."""
     with span("sph.count"):
         live_before = ps.live.sum(dtype=torch.int32)
-    with span("sph.predict"):
-        chans = predict_planes(ps, params)
+    if variant == 6:
+        chans, predict = planes_of(ps), predict_args(params)
+    else:
+        with span("sph.predict"):
+            chans, predict = predict_planes(ps, params), None
     with span("sph.rebin"):
-        rebinned, counts, walk = slab.rebin(chans, variant)
-    del chans  # four predicted planes, not to be held through the walks
+        rebinned, counts, walk = slab.rebin(chans, variant, predict)
+    del chans  # predicted planes (variants 2-5), not to be held through the walks
     lossless = variant in (5, 6)
     if walk is None and lossless:
         with span("sph.defer"):

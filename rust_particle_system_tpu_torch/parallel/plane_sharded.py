@@ -14,7 +14,8 @@ the walks (K2/K3/K3b, or K6) read the neighbour bands' edge rows as ghost rows.
 Per frame, on every rank (JAX ``ppermute`` -> point-to-point, ``psum`` ->
 ``all_reduce``):
 
-1. gravity + predict                                   (elementwise)
+1. gravity + predict: variant 6 the band's edge rows    (elementwise)
+   (K7 predicts its own rows at load); variant 5 all
 2. rebin ghost rows, K7                                 one exchange (two at R=1)
    or variant 5: ghost rows, K9 pass Y                  one exchange
                  adoption return, merge, K9 pass X      one exchange
@@ -40,7 +41,8 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda.rebin import SENTINEL, hole_fill_pass, rebin_planes_walk, retention_merge
+from ..ops.cuda.rebin import (SENTINEL, hole_fill_pass, predict_channels, rebin_planes_walk,
+                              retention_merge)
 from ..ops.cuda.resident import FILLS, PlaneState, Slab, _physics
 from ..render.splat import splat_resolve
 from ..render.splat_planes import MARGIN, accumulators, raster_planes, render_geometry
@@ -75,6 +77,14 @@ def _rebin_v5_band(chans, spec, row0: int, mesh: BandMesh) -> list:
     out, _, adopted = hole_fill_pass(mid, spec, FILLS, 1, False, True, None, row0)
     out = retention_merge(mid, out, adopted, spec, 1, False, row0)
     return [o.reshape(R, gw, C) for o in out]
+
+
+def _edge_rows(planes) -> list:
+    """Each ``[R, gw, C]`` plane's rows that its neighbour bands read as
+    ghost rows (``rebin_halo``'s rows: 0, R-2 and R-1), in that order, as a
+    band of at most three rows."""
+    R = planes[0].shape[0]
+    return [torch.cat([p[:1], p[R - 2:]]) for p in planes] if R > 3 else list(planes)
 
 
 def check_plane_diags(diags: torch.Tensor, expect_particles: int | None = None) -> dict:
@@ -127,11 +137,16 @@ def _band_step(spec, mesh: BandMesh, rebin_variant: int, fuse_tail: bool):
     row0 = mesh.rank * (spec.gh // mesh.size)
 
     # The exchanges are looked up when the frame runs, so a swapped
-    # ``rebin_halo`` or ``halo_rows`` of this module takes effect.
-    def rebin(chans, variant):
+    # ``rebin_halo`` or ``halo_rows`` of this module takes effect.  K7
+    # predicts the band's own rows at load; its ghost rows come predicted,
+    # from the neighbours' edge rows predicted in torch.
+    def rebin(chans, variant, predict):
         if variant == 5:
             return _rebin_v5_band(chans, spec, row0, mesh), None, None
-        return rebin_planes_walk(chans, spec, FILLS, row0, rebin_halo(chans, FILLS, mesh))
+        with span("sph.predict"):
+            edges = predict_channels(_edge_rows(chans), predict)
+        return rebin_planes_walk(chans, spec, FILLS, row0, rebin_halo(edges, FILLS, mesh),
+                                 predict)
 
     slab = Slab(row0, rebin, lambda planes, fills: halo_rows(planes, fills, mesh))
 

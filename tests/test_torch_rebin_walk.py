@@ -17,8 +17,16 @@ no hole and are retained, movers of more than one cell), and through the
 frame's core ``resident._physics``, which must give the same frame whether
 the rebin hands it the walk planes or it computes them.  On a card, K1's and K7's walk planes are
 held to ``walk_positions`` of K1's output over C 16/128/1024 and uniform,
-crowded and sparse planes; those cases skip without a card.  This module
-imports only the port, so on the card it runs with
+crowded and sparse planes; those cases skip without a card.
+
+Handed the state's raw planes and ``predict = (dt, gdt)``, the entry applies
+gravity and the predict as it loads (K1 and K7, ``rebin_tile<true>``): its
+planes, counts and walk planes must equal ``predict_channels`` followed by
+the entry bit for bit, also where dead slots hold stale velocities and ids
+lie past 2^24; a band's, its ghost rows predicted as the band path predicts
+its edge rows, must be those rows of the whole grid's.  ``plane_step``
+variant 6 is that composition written out; variant 5 still predicts in
+torch.  This module imports only the port, so on the card it runs with
 ``python -m pytest --noconftest tests/test_torch_rebin_walk.py``.
 """
 
@@ -31,6 +39,7 @@ from rust_particle_system_tpu_torch.ops.cuda import rebin as R
 from rust_particle_system_tpu_torch.ops.cuda import resident
 from rust_particle_system_tpu_torch.ops.cuda.rebin import SENTINEL, walk_positions
 from rust_particle_system_tpu_torch.ops.grid import GridSpec
+from rust_particle_system_tpu_torch.parallel import plane_sharded
 
 H = 9.0
 GEOMS = {  # C: bounds (gw x gh cells of 9.0)
@@ -73,6 +82,28 @@ def _planes(capacity, kind, seed=0, device="cpu"):
              np.where(live, rng.standard_normal(shape) * 20, 0.0),
              np.where(live, rng.standard_normal(shape) * 20, 0.0), np.where(live, ids, 0.0)]
     return spec, [torch.as_tensor(a.astype(np.float32), device=device) for a in chans]
+
+
+def _raw(capacity, kind, seed=0, device="cpu"):
+    """(spec, [px, py, vx, vy, idsf], predict): a state for the predict at
+    load, from :func:`_planes`.  ``kind`` as there, or "stale" (uniform,
+    every dead slot holding a velocity of its own, which the predict must
+    not carry) or "wide" (uniform, ids from 2^24 up, in the codec's negative
+    floats)."""
+    spec, chans = _planes(capacity, "uniform" if kind in ("stale", "wide") else kind, seed)
+    dead = ~(chans[0] < 0.5 * SENTINEL)
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "stale":
+        for c in (2, 3):
+            chans[c] = torch.where(dead, torch.randn(dead.shape, generator=gen) * 30, chans[c])
+    if kind == "wide":
+        ids = (1 << 24) + torch.arange(dead.numel(), dtype=torch.int32).reshape(dead.shape)
+        chans[4] = torch.where(dead, 0.0, resident.encode_ids(ids))
+    params = make_params(bounds=GEOMS[capacity], gravity=300.0)
+    return spec, [c.to(device) for c in chans], resident.predict_args(params)
+
+
+RAW = ["uniform", "crowded", "stale", "wide"]
 
 
 def _deferred(px, wx) -> int:
@@ -165,7 +196,8 @@ def test_walk_and_integrate_takes_the_walk_planes(capacity, fuse_tail):
     ps = resident.PlaneState(*chans, frame=params.shader_delay,
                              lost=torch.zeros((), dtype=torch.int32),
                              n=int((chans[0] < 0.5 * SENTINEL).sum()))
-    masked = resident.Slab(0, lambda c, variant: (*R.rebin_planes(c, spec), None))
+    masked = resident.Slab(0, lambda c, variant, predict: (
+        *R.rebin_planes(R.predict_channels(c, predict) if predict else c, spec), None))
     got = resident._physics(ps, params, spec, fuse_tail, 6, resident._grid_slab(spec))
     want = resident._physics(ps, params, spec, fuse_tail, 6, masked)
     (got_planes, got_live, got_counts, got_fpx) = got
@@ -190,6 +222,120 @@ def test_frame_with_the_folded_mask_is_variant_5s():
         b = resident.plane_step(b, params, spec, variant=5)
     for f in ("px", "py", "vx", "vy", "idsf", "lost"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _cpu(result):
+    """A ``rebin_planes_walk`` result on the host."""
+    planes, counts, walk = result
+    return [p.cpu() for p in planes], counts.cpu(), tuple(w.cpu() for w in walk)
+
+
+def _same_rebin(got, want) -> bool:
+    """Two ``rebin_planes_walk`` results equal bit for bit."""
+    (a, ca, wa), (b, cb, wb) = got, want
+    return (all(_bit_equal(x, y) for x, y in zip(a, b)) and torch.equal(ca, cb)
+            and all(_bit_equal(x, y) for x, y in zip(wa, wb)))
+
+
+@pytest.mark.parametrize("kind", RAW)
+@pytest.mark.parametrize("capacity", [16, 128])
+def test_entry_predicts_at_load(capacity, kind):
+    """The whole grid handed the raw planes and the predict: the planes,
+    counts and walk planes of ``predict_planes`` followed by the entry, bit
+    for bit; the predict moved every live slot's y and parked every dead one."""
+    spec, raw, predict = _raw(capacity, kind, seed=capacity + 3)
+    got = R.rebin_planes_walk(raw, spec, FILLS, predict=predict)
+    ps = resident.PlaneState(*raw, frame=0, lost=torch.zeros((), dtype=torch.int32), n=0)
+    chans = resident.predict_planes(ps, make_params(bounds=GEOMS[capacity], gravity=300.0))
+    assert _same_rebin(got, R.rebin_planes_walk(chans, spec, FILLS))
+    live = raw[0] < 0.5 * SENTINEL
+    assert not bool((chans[1][live] == raw[1][live]).any())
+    assert bool((chans[0][~live] == SENTINEL).all()) and bool((chans[3][~live] == 0).all())
+    assert _deferred(got[0][0], got[2][0]) > 0
+
+
+@pytest.mark.parametrize("kind", ["uniform", "crowded"])
+@pytest.mark.parametrize("capacity", [16, 128])
+def test_band_entry_predicts_its_own_rows(capacity, kind):
+    """K7 handed a band's raw slab and the predict, its ghost rows the
+    neighbour bands' edge rows predicted as the band path predicts them
+    (``plane_sharded._edge_rows``, then ``predict_channels``): every output
+    is those rows of the whole grid's."""
+    spec, raw, predict = _raw(capacity, kind, seed=capacity + 4)
+    whole = R.rebin_planes_walk(raw, spec, FILLS, predict=predict)
+    edges = lambda a, b: R.predict_channels(plane_sharded._edge_rows([p[a:b] for p in raw]),
+                                            predict)
+    fill = lambda c: torch.full_like(raw[c][0], FILLS[c])
+    for r0, Rb in _bands(spec.gh):
+        # The bands below and above: every row under the slab, every row over it.
+        lo = edges(0, r0) if r0 else None
+        hi = edges(r0 + Rb, spec.gh) if r0 + Rb < spec.gh else None
+        ghosts = ([lo[c][-2] if r0 >= 2 else fill(c) for c in (0, 1)],
+                  [lo[c][-1] if lo else fill(c) for c in range(5)],
+                  [hi[c][0] if hi else fill(c) for c in range(5)])
+        slab = [p[r0:r0 + Rb].contiguous() for p in raw]
+        out, counts, walk = R.rebin_planes_walk(slab, spec, FILLS, r0, ghosts, predict)
+        rows = slice(r0, r0 + Rb)
+        assert all(_bit_equal(a, b[rows]) for a, b in zip(out, whole[0])), (r0, Rb)
+        assert torch.equal(counts, whole[1][r0 * spec.gw:(r0 + Rb) * spec.gw])
+        assert all(_bit_equal(a, b[rows]) for a, b in zip(walk, whole[2])), (r0, Rb)
+
+
+def test_edge_rows_are_the_rows_the_neighbours_read():
+    """``_edge_rows`` keeps rows 0, R-2 and R-1 in that order (the whole band
+    at three rows or fewer), so the ghost rows ``rebin_halo`` picks from it
+    are the band's own."""
+    planes = [torch.arange(7 * 2 * 3, dtype=torch.float32).reshape(7, 2, 3) + c for c in (0, 9)]
+    for Rb, rows in ((7, [0, 5, 6]), (4, [0, 2, 3]), (3, [0, 1, 2]), (2, [0, 1]), (1, [0])):
+        got = plane_sharded._edge_rows([p[:Rb] for p in planes])
+        assert all(torch.equal(g, p[rows]) for g, p in zip(got, planes)), Rb
+
+
+def test_plane_step_variant_6_is_the_composition():
+    """``plane_step`` variant 6 written out: the torch predict, the entry's
+    rebin with the walk planes, the fused walks, the ids' re-park and
+    ``lost``: bit for bit over three frames."""
+    spec, raw, _ = _raw(16, "stale", seed=6)
+    params = make_params(bounds=GEOMS[16], gravity=300.0)
+    ps = resident.PlaneState(*raw, frame=params.shader_delay,
+                             lost=torch.zeros((), dtype=torch.int32),
+                             n=int((raw[0] < 0.5 * SENTINEL).sum()))
+    for _ in range(3):
+        got = resident.plane_step(ps, params, spec, variant=6)
+        live_before = ps.live.sum(dtype=torch.int32)
+        out, counts, walk = R.rebin_planes_walk(resident.predict_planes(ps, params), spec, FILLS)
+        px, py, vx, vy = resident.walk_and_integrate(out, walk, spec, params, True)
+        idsf = torch.where(out[0] < 0.5 * SENTINEL, out[4], 0.0)
+        lost = ps.lost + (live_before - counts.clamp_max(spec.capacity).sum(dtype=torch.int32))
+        for f, want in zip(("px", "py", "vx", "vy", "idsf"), (px, py, vx, vy, idsf)):
+            assert _bit_equal(getattr(got, f), want), f
+        assert torch.equal(got.lost, lost) and got.frame == ps.frame + 1
+        ps = got
+
+
+def test_variant_5_runs_the_torch_predict(monkeypatch):
+    """Variant 5 predicts in torch, once a frame; variant 6 hands the rebin
+    the state's planes and never calls it."""
+    spec, raw, _ = _raw(16, "uniform", seed=7)
+    params = make_params(bounds=GEOMS[16], gravity=300.0)
+    ps = resident.PlaneState(*raw, frame=params.shader_delay,
+                             lost=torch.zeros((), dtype=torch.int32),
+                             n=int((raw[0] < 0.5 * SENTINEL).sum()))
+    calls = []
+    plain = resident.predict_planes
+    monkeypatch.setattr(resident, "predict_planes", lambda *a: calls.append(1) or plain(*a))
+    a = resident.plane_step(ps, params, spec, variant=5)
+    assert len(calls) == 1
+    b = resident.plane_step(ps, params, spec, variant=6)
+    assert len(calls) == 1
+    for f in ("px", "py", "vx", "vy", "idsf", "lost"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_predict_at_load_checks_its_channels():
+    spec, raw, predict = _raw(16, "uniform")
+    with pytest.raises(ValueError):
+        R.rebin_planes_walk(raw[:3], spec, FILLS[:3], predict=predict)
 
 
 # ---------------- on the card ----------------
@@ -242,3 +388,37 @@ def test_band_kernel_walk_planes_are_k1s_rows(card, capacity, kind):
         assert torch.equal(counts, whole_counts[r0 * spec.gw:(r0 + Rb) * spec.gw])
         assert _bit_equal(walk[0], mx) and _bit_equal(walk[1], my)
         assert all(_bit_equal(a, b) for a, b in zip(out, base)) and torch.equal(counts, base_counts)
+
+
+@pytest.mark.parametrize("kind", list(PLANES) + ["stale", "wide"])
+@pytest.mark.parametrize("capacity", list(GEOMS))
+def test_kernel_predicts_at_load(card, capacity, kind):
+    """K1 handed the raw planes and the predict (``rebin_tile<true>``): its
+    planes, counts and walk planes equal ``predict_planes`` on the card
+    followed by K1 (``rebin_tile<false>``) bit for bit, and the plain
+    version's."""
+    spec, raw, predict = _raw(capacity, kind, seed=capacity + 30, device=card)
+    got = R.rebin_planes_walk(raw, spec, FILLS, predict=predict)
+    want = R.rebin_planes_walk(R.predict_channels(raw, predict), spec, FILLS)
+    plain = R.rebin_planes_walk([p.cpu() for p in raw], spec, FILLS, predict=predict)
+    torch.cuda.synchronize()
+    assert _same_rebin(got, want) and _same_rebin(_cpu(got), plain)
+
+
+@pytest.mark.parametrize("kind", list(PLANES) + ["stale"])
+@pytest.mark.parametrize("capacity", list(GEOMS))
+def test_band_kernel_predicts_its_own_rows(card, capacity, kind):
+    """K7 handed a band's raw slab and the predict, its ghost rows predicted
+    in torch: every output is those rows of K1's, folded, on the whole grid."""
+    spec, raw, predict = _raw(capacity, kind, seed=capacity + 40, device=card)
+    whole = R.rebin_planes_walk(raw, spec, FILLS, predict=predict)
+    pred = R.predict_channels(raw, predict)
+    for r0, Rb in _bands(spec.gh):
+        slab = [p[r0:r0 + Rb].contiguous() for p in raw]
+        out, counts, walk = R.rebin_planes_walk(slab, spec, FILLS, r0,
+                                                _ghosts(pred, r0, Rb, spec.gh), predict)
+        torch.cuda.synchronize()
+        rows = slice(r0, r0 + Rb)
+        assert all(_bit_equal(a, b[rows]) for a, b in zip(out, whole[0])), (r0, Rb)
+        assert torch.equal(counts, whole[1][r0 * spec.gw:(r0 + Rb) * spec.gw])
+        assert all(_bit_equal(a, b[rows]) for a, b in zip(walk, whole[2])), (r0, Rb)

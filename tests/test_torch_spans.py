@@ -25,15 +25,14 @@ from rust_particle_system_tpu_torch.render import RenderSpec
 from rust_particle_system_tpu_torch.runtime import cli, profiling
 
 BOUNDS = (-54.0, 54.0, -36.0, 36.0)  # 13 x 9 cells of 9
-PHASES = ["sph.count", "sph.predict", "sph.rebin", "sph.density", "sph.pressure",
-          "sph.force"]
+PHASES = ["sph.count", "sph.rebin", "sph.density", "sph.pressure", "sph.force"]
 # a frame's phases in order: the live count, then after the walks the ids'
-# re-park and the lost count.  The default rebin (variant 6, K1) writes the
-# walk planes itself, so no ``sph.defer``; variant 5 (K9's two passes) takes
-# the defer mask in torch under it, straight after the rebin.
-FRAME = ["sph.count", "sph.predict", "sph.rebin", "sph.density", "sph.pressure",
-         "sph.force", "sph.count"]
-FRAME_V5 = FRAME[:3] + ["sph.defer"] + FRAME[3:]
+# re-park and the lost count.  The default rebin (variant 6, K1) predicts at
+# load and writes the walk planes itself, so no ``sph.predict`` and no
+# ``sph.defer``; variant 5 (K9's two passes) predicts in torch before it and
+# takes the defer mask in torch under ``sph.defer``, straight after it.
+FRAME = ["sph.count", "sph.rebin", "sph.density", "sph.pressure", "sph.force", "sph.count"]
+FRAME_V5 = FRAME[:1] + ["sph.predict", "sph.rebin", "sph.defer"] + FRAME[2:]
 
 
 def _state(n=300, capacity=16, seed=0, spec=None):
@@ -181,7 +180,9 @@ def test_sharded_step_spans_on_two_gloo_bands():
     the halo exchanges as ``sph.halo`` and the all_reduce as ``sph.reduce``,
     all inside its one ``sph.frame``; the sharded frame adds ``sph.render``
     with its all_reduce inside.  K7 writes the walk planes, so only the
-    variant-5 step opens ``sph.defer``."""
+    variant-5 step opens ``sph.defer``; K7 predicts its own rows at load,
+    so the variant-6 step's ``sph.predict`` is the edge rows' inside
+    ``sph.rebin``, before their exchange."""
     spec = make_shard_spec(BOUNDS, 9.0, 16, 2)
     ps, _, _ = _state(n=300, spec=spec)
     planes = [getattr(ps, f) for f in ("px", "py", "vx", "vy", "idsf")]
@@ -193,6 +194,8 @@ def test_sharded_step_spans_on_two_gloo_bands():
         for name in PHASES + ["sph.halo", "sph.reduce"]:
             assert name in names, name
         assert names.index("sph.halo") > names.index("sph.rebin")
+        assert names.index("sph.rebin") < names.index("sph.predict") < names.index("sph.halo")
+        assert names.count("sph.predict") == 1
         assert names[-1] == "sph.reduce"
         assert "sph.defer" not in names
         names, framed = out["step_v5"]
@@ -217,3 +220,4 @@ def test_cli_profile_writes_the_frames_spans(tmp_path, capsys):
     assert names.count("sph.frame") == 7
     for name in PHASES:
         assert name in names, name
+    assert "sph.predict" not in names
